@@ -4,15 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, drives the main
-path (``StencilEngine`` with the ``cuda_sptc``, ``cuda_gemm`` and
-``cuda_direct`` backends) over the whole paper suite at the paper's size —
-10240 x 10240 float32 grids for 2-D, 104,857,600 points for 1-D — against
-the ``direct`` backend on the card, times every kernel with CUDA events and
-prints one JSON line per kernel family plus a final contract line.  Every
-phase raises on failure; the script exits non-zero without a result when
-no CUDA device (or no ``repro_torch`` package beside it) is present.
-Imports nothing of JAX or of the JAX reference package.
+each kernel against its plain torch version on the card, and drives three
+paths, each with the launch counters set to 0 just before it and read just
+after:
+
+* the stencil engine (``StencilEngine`` with the ``cuda_sptc``,
+  ``cuda_gemm`` and ``cuda_direct`` backends) over the whole paper suite at
+  the paper's size — 10240 x 10240 float32 grids for 2-D, 104,857,600
+  points for 1-D — against the ``direct`` backend on the card;
+* the v1 compressed SpMM entry (``sptc_spmm_windows``) applying box-2d1r
+  at 10240 x 10240 from swapped windows, against ``direct``;
+* serving ``mamba2-2.7b`` at full width and depth (64 layers, bf16, random
+  weights from a seed) through ``GenerateDriver``: 8 requests of 512-token
+  prompts, 32 new tokens each, with the causal-conv1d kernel in every
+  layer of every prefill.
+
+It times every kernel with CUDA events at the paths' shapes and prints the
+card, a ``kernels`` JSON line and a final contract line.  Every phase
+raises on failure; the script exits non-zero without a result when no CUDA
+device (or no ``repro_torch`` package beside it) is present.  Imports
+nothing of JAX or of the JAX reference package.
 """
 from __future__ import annotations
 
@@ -32,6 +43,14 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 TOL = 3e-5                           # f32: |got - want| <= TOL * (1 + |want|)
 TOL_BF16 = 1e-2                      # bf16 storage: one output rounding step
+#: kernel vs plain model logits, relative to 1 + |plain|.  f32: the conv
+#: kernel's fused multiply-adds against separate rounding; bf16: the plain
+#: model's conv (the reference oracle) rounds to bf16 after every tap, the
+#: kernel once, and the difference runs through both layers into the logits
+LM_TOL_F32 = 1e-4
+LM_TOL_BF16 = 0.25
+ARCH = "mamba2-2.7b"
+N_REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH = 8, 512, 32, 4
 OUT_DIR = ROOT / "chiprun_out"
 
 
@@ -68,6 +87,234 @@ def _bound_ms(bytes_moved: float, flops: float):
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
+def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
+              shape: str, reps: int = 20) -> dict:
+    """Check ``kern`` against ``plain`` once, then time kernel, plain
+    version and library yardstick with CUDA events."""
+    err = _err(kern(), plain(), tol)
+    bound, by = _bound_ms(nbytes, flops)
+    return {"ms": _time_ms(kern, reps), "plain_ms": _time_ms(plain, 5),
+            "library_ms": _time_ms(lib, reps), "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err, "shape": shape}
+
+
+def _v1_stencil(spec, x, dev):
+    """One application of ``spec`` through the v1 SpMM entry: per row op of
+    the plan, the strided-swapped windows of its input slice times the
+    2:4-compressed operand (``sptc_spmm_windows``), accumulated."""
+    import torch
+    from repro_torch.core.engine import _op_slice, _windows
+    from repro_torch.core.transform import lower_spec
+    from repro_torch.kernels.sptc_spmm.ops import sptc_spmm_windows
+    plan = lower_spec(spec, backend="sptc")
+    r, d, L = spec.radius, spec.ndim, plan.L
+    perm = torch.as_tensor(plan.sparsify.perm, dtype=torch.int64, device=dev)
+    out_shape = tuple(s - 2 * r for s in x.shape)
+    acc = torch.zeros(out_shape, dtype=x.dtype, device=dev)
+    for op in plan.decompose.ops:
+        sl, axis = _op_slice(plan.decompose.mode, op, out_shape, r, d)
+        n_out = out_shape[axis]
+        x2d = torch.movedim(x[sl], axis, 0).contiguous()
+        x2d = x2d.reshape(x2d.shape[0], -1)
+        win, ntiles = _windows(x2d, n_out, L, order=perm)
+        opnd = plan.sparsify.operands[op.operand]
+        y = sptc_spmm_windows(
+            torch.as_tensor(opnd.values, dtype=x.dtype, device=dev),
+            torch.as_tensor(opnd.meta, device=dev), win.contiguous())
+        y = y.reshape(ntiles * L, -1)[:n_out]
+        rest = tuple(s for a, s in enumerate(out_shape) if a != axis)
+        acc = acc + torch.movedim(y.reshape((n_out,) + rest), 0, axis)
+        del x2d, win, y
+    return acc
+
+
+def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` by kernel name (``torch.profiler``),
+    and the share of the call's wall time the device spent idle.
+
+    A measurement only: where the profiler records no device time here,
+    that is printed and the run goes on.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except RuntimeError as exc:            # the profiler, not the work
+        print(f"profile {label}: torch.profiler failed ({exc})")
+        return {"wall_ms": None, "device_ms": None}
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in events                # the kernels, not the ops
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    if not rows:
+        print(f"profile {label}: the profiler recorded no device time")
+        return {"wall_ms": wall_ms, "device_ms": None}
+    print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
+          f"{busy_ms:.2f} ms in {launches} kernels, idle share "
+          f"{100 * max(0.0, 1 - busy_ms / wall_ms):.0f}% | card {smi}")
+    for ms, n, key in rows[:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<5d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": launches,
+            "top": [{"ms": ms, "count": n, "name": key}
+                    for ms, n, key in rows[:top]]}
+
+
+def _phase_lm(dev, smi: str) -> dict:
+    """Serve mamba2-2.7b at full width and depth through GenerateDriver,
+    check it, and time prefill and decode."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.nn import count_params
+    from repro_torch.serving import BatchPolicy, GenerateDriver
+    from repro_torch.serving import engine as E
+
+    rng = np.random.default_rng(2)
+    out: dict = {}
+    # the config cut to 2 layers: the kernel against the plain conv
+    for dt, tol in (("float32", LM_TOL_F32), ("bfloat16", LM_TOL_BF16)):
+        cfg2 = get_config(ARCH).scaled(n_layers=2, dtype=dt, use_kernels=True)
+        p2 = M.init_params(cfg2, 1, device=dev)
+        toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (2, 64)),
+                               device=dev)
+        on = M.forward(p2, cfg2, toks)[0]
+        off = M.forward(p2, cfg2.scaled(use_kernels=False), toks)[0]
+        err = _err(on, off, tol)
+        mean = float((on - off).abs().mean())
+        out[f"two_layer_{dt}"] = {"max_abs_err": err, "mean_abs_err": mean}
+        print(f"phase lm {ARCH} cut to 2 layers, {dt}: prefill logits with "
+              f"use_kernels on vs off, max |err| {err:.3g}, mean {mean:.3g} "
+              f"(tol {tol} relative to 1 + |off|)")
+        del p2, on, off
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH).scaled(use_kernels=True)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"phase lm {ARCH}: {n_params:,} parameters ({cfg.dtype}, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}) drawn on the card "
+          f"in {time.perf_counter() - t0:.1f} s")
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, PROMPT_LEN),
+                               dtype=torch.int32) for _ in range(N_REQUESTS)]
+    cache_len = PROMPT_LEN + NEW_TOKENS
+    driver = GenerateDriver(params, cfg, cache_len=cache_len, autostart=False,
+                            policy=BatchPolicy(max_batch=MAX_BATCH,
+                                               max_wait_ms=5.0))
+    conv_ops.conv1d_causal.launches = 0
+    t0 = time.perf_counter()
+    futs = [driver.submit(p, NEW_TOKENS) for p in prompts]
+    driver.start()
+    toks_out = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    driver.close()
+    launches = conv_ops.conv1d_causal.launches
+    stats = driver.metrics()["overall"]
+    batches = stats["batches"]
+    for i, t in enumerate(toks_out):
+        if tuple(t.shape) != (NEW_TOKENS,) or int(t.min()) < 0 or \
+                int(t.max()) >= cfg.vocab:
+            raise AssertionError(f"request {i}: tokens {tuple(t.shape)}")
+    if batches != N_REQUESTS // MAX_BATCH or \
+            launches != cfg.n_layers * batches:
+        raise AssertionError(f"{batches} batches, {launches} conv1d launches "
+                             f"(want {cfg.n_layers} per prefill)")
+    print(f"phase lm {ARCH} main path: served {N_REQUESTS} requests of "
+          f"{PROMPT_LEN} tokens, {NEW_TOKENS} new tokens each, in "
+          f"{wall:.2f} s ({N_REQUESTS * NEW_TOKENS / wall:.1f} new tok/s), "
+          f"batches {batches}, occupancy {stats['batch_occupancy']}, p50 "
+          f"{stats['latency']['p50_ms']:.0f} ms, p99 "
+          f"{stats['latency']['p99_ms']:.0f} ms; conv1d_causal launches "
+          f"{launches} = {cfg.n_layers} x {batches} prefills")
+
+    # the first batch again: finite logits, the served first tokens, and
+    # the full depth with the plain conv (for information)
+    batch0 = torch.stack(prompts[:MAX_BATCH]).to(dev)
+    logits, cc = E.prefill(params, cfg, batch0, cache_len)
+    if tuple(logits.shape) != (MAX_BATCH, PROMPT_LEN, cfg.vocab) or \
+            logits.dtype != torch.float32 or not bool(logits.isfinite().all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype} not finite float32")
+    first = torch.argmax(logits[:, -1], dim=-1).cpu()
+    served = torch.stack([t[0] for t in toks_out[:MAX_BATCH]]).cpu()
+    if not torch.equal(first.to(served.dtype), served):
+        raise AssertionError(f"served first tokens {served.tolist()} != "
+                             f"prefill argmax {first.tolist()}")
+    plain = M.forward(params, cfg.scaled(use_kernels=False), batch0)[0]
+    full_diff = float((plain - logits).abs().max())
+    logit_max = float(plain.abs().max())
+    del plain
+    print(f"phase lm {ARCH}: prefill logits finite, served first tokens = "
+          f"argmax; full depth use_kernels on vs off max |logit diff| "
+          f"{full_diff:.3g} of max |logit| {logit_max:.3g} (information only)")
+    out["full_depth_bf16"] = {"max_abs_logit_diff": full_diff,
+                              "max_abs_logit": logit_max}
+    # the same comparison in float32 (information only): without bf16's
+    # per-tap rounding in the plain conv, the two runs differ by sum order
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = M.init_params(cfg32, 0, device=dev)
+    on = M.forward(p32, cfg32, batch0[:1, :128])[0]
+    off = M.forward(p32, cfg32.scaled(use_kernels=False), batch0[:1, :128])[0]
+    out["full_depth_f32"] = {"max_abs_logit_diff": float((on - off).abs().max()),
+                             "max_abs_logit": float(off.abs().max())}
+    del p32, on, off
+    torch.cuda.empty_cache()
+    print(f"phase lm {ARCH}: full depth in float32 (1 x 128 tokens), use_"
+          f"kernels on vs off max |logit diff| "
+          f"{out['full_depth_f32']['max_abs_logit_diff']:.3g} of max |logit| "
+          f"{out['full_depth_f32']['max_abs_logit']:.3g} (information only)")
+
+    # timing: prefill of one batch, then decode steps (host clock, synced)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cc = E.prefill(params, cfg, batch0, cache_len)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    del logits
+    E.decode_step(params, cfg, cc, tok)                 # warm-up
+    steps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cc = E.decode_step(params, cfg, cc, tok)
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"timing {ARCH} prefill {MAX_BATCH} x {PROMPT_LEN}: {prefill_ms:.2f} "
+          f"ms ({MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f} tok/s); "
+          f"decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | card {smi}")
+    out["profile"] = {
+        "prefill": _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
+                            f"prefill {MAX_BATCH} x {PROMPT_LEN}", smi),
+        "decode_step": _profile(lambda: E.decode_step(params, cfg, cc, tok),
+                                f"decode step at batch {MAX_BATCH}", smi)}
+    out.update({"params": n_params, "serve_wall_s": wall, "batches": batches,
+                "conv1d_launches": launches, "metrics": stats,
+                "prefill_ms": prefill_ms,
+                "prefill_tok_s": MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3,
+                "decode_ms_per_step": decode_ms, "n_layers": cfg.n_layers})
+    del params, cc, driver
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -78,10 +325,14 @@ def main() -> int:
 
     from repro_torch.core.engine import StencilEngine, _windows
     from repro_torch.core.sparsify import sparsify_stencil_kernel
+    from repro_torch.core.sptc import sptc_matmul_dense_equiv
     from repro_torch.core.stencil import paper_suite
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
     from repro_torch.kernels.sptc_spmm import ops as sptc_ops
-    from repro_torch.kernels.sptc_spmm.ref import sptc_fused_ref
+    from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                                   sptc_spmm_windows_ref)
     from repro_torch.kernels.stencil_direct import ops as direct_ops
     from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
     from repro_torch.kernels.stencil_gemm import ops as gemm_ops
@@ -101,6 +352,12 @@ def main() -> int:
         gen.manual_seed(seed)
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+
     # -- phase 1: build -----------------------------------------------------
     t0 = time.perf_counter()
     log = build.build()
@@ -113,8 +370,9 @@ def main() -> int:
 
     # -- phase 2: every kernel against its plain version on the card --------
     rng = np.random.default_rng(0)
-    worst = {"sptc": 0.0, "gemm": 0.0, "direct": 0.0}
-    cases = {"sptc": 0, "gemm": 0, "direct": 0}
+    worst = {"sptc": 0.0, "gemm": 0.0, "direct": 0.0, "spmm": 0.0,
+             "conv1d": 0.0}
+    cases = {"sptc": 0, "gemm": 0, "direct": 0, "spmm": 0, "conv1d": 0}
     for r in (1, 2, 3):
         sk = sparsify_stencil_kernel(rng.normal(size=2 * r + 1))
         L = sk.L
@@ -161,6 +419,33 @@ def main() -> int:
                 want = stencil2d_ref(taps.host, x, r, r)
             worst["direct"] = max(worst["direct"], _err(got, want, tol))
             cases["direct"] += 1
+    for m in (8, 16):                    # v1 SpMM: (m, m) operand, K = 2m
+        sk = sparsify_stencil_kernel(rng.normal(size=m - 1), L=m)
+        for n in (1, 37, 1000):
+            for dt in (f32, torch.bfloat16):
+                vals = torch.as_tensor(sk.values, device=dev).to(dt)
+                meta = torch.as_tensor(sk.meta, device=dev)
+                big = randn(5, 2 * m, n + 3, dtype=dt, seed=m + n)
+                win = big[:, :, 2:2 + n]                 # row stride != N
+                tol = TOL if dt == f32 else TOL_BF16
+                want = sptc_spmm_windows_ref(vals, meta, win)
+                for got in (sptc_ops.sptc_spmm_windows(vals, meta, win),
+                            sptc_ops.sptc_spmm(vals, meta, win[2])[None]):
+                    ref = want if got.shape[0] > 1 else want[2:3]
+                    worst["spmm"] = max(worst["spmm"], _err(got, ref, tol))
+                    cases["spmm"] += 1
+    for b in (1, 3):
+        for t in (1, 3, 257):
+            for d in (1, 37, 160, 5376):
+                for dt in (f32, torch.bfloat16):
+                    w = randn(4, d, dtype=dt, seed=d)
+                    big = randn(b, t, 2 * d + 7, dtype=dt, seed=b + t + d)
+                    for x in (big[:, :, :d].contiguous(), big[:, :, 3:3 + d]):
+                        got = conv_ops.conv1d_causal(x, w)
+                        tol = TOL if dt == f32 else TOL_BF16
+                        worst["conv1d"] = max(worst["conv1d"], _err(
+                            got, conv1d_causal_plain(x, w), tol))
+                        cases["conv1d"] += 1
     torch.cuda.synchronize()
     for k in worst:
         print(f"phase 2 {k}: {cases[k]} small cases, max |err| vs plain "
@@ -221,12 +506,25 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"main path never launched the {b} kernel")
 
+    # -- phase 3b: the v1 SpMM entry applying box-2d1r at full size ----------
+    box1 = next(s for s in suite if s.name == "box-2d1r")
+    x = randn(N_2D + 2, N_2D + 2, seed=23)
+    want = StencilEngine(box1, "direct", device=dev)(x)
+    sptc_ops.sptc_spmm_windows.launches = 0
+    t0 = time.perf_counter()
+    got = _v1_stencil(box1, x, dev)
+    torch.cuda.synchronize()
+    launches["sptc_spmm"] = sptc_ops.sptc_spmm_windows.launches
+    e_v1 = _err(got, want, TOL)
+    print(f"phase 3b v1 path: box-2d1r {N_2D}x{N_2D} through "
+          f"sptc_spmm_windows in {time.perf_counter() - t0:.2f} s, max |err| "
+          f"vs direct {e_v1:.3g}, launches {launches['sptc_spmm']}")
+    if launches["sptc_spmm"] == 0:
+        raise AssertionError("v1 path never launched the sptc_spmm kernel")
+    results["specs"]["box-2d1r"]["v1_sptc_spmm_max_abs_err"] = e_v1
+    del x, want, got
+
     # -- phase 4: timing at the main path's shapes ---------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
     rows = {}
     for spec in suite:
         r, d = spec.radius, spec.ndim
@@ -358,8 +656,76 @@ def main() -> int:
         torch.cuda.empty_cache()
     results["timing"] = rows
 
-    # -- phase 5: summary -----------------------------------------------------
+    # v1 SpMM at the box-2d1r windows shape that cuda_gemm is timed at,
+    # the windows strided-swapped as its pre-swapped RHS
     canon = "box-2d1r"          # the canonical shape of the kernels line
+    plan = StencilEngine(box1, "sptc", device=dev).plan_ir
+    L = plan.L
+    x = randn(N_2D + 2, N_2D + 2, seed=3)
+    x2d = x[0:N_2D, :].T.contiguous()
+    perm = torch.as_tensor(plan.sparsify.perm, dtype=torch.int64, device=dev)
+    win = _windows(x2d, N_2D, L, order=perm)[0].contiguous()
+    del x, x2d
+    opnd = plan.sparsify.operands[0]
+    vals = torch.as_tensor(opnd.values, dtype=f32, device=dev)
+    meta_t = torch.as_tensor(opnd.meta, device=dev)
+    dense = sptc_matmul_dense_equiv(vals, meta_t, 2 * L)          # (L, 2L)
+    t_, _, c = win.shape
+    spmm = _time_row(
+        lambda: sptc_ops.sptc_spmm_windows(vals, meta_t, win),
+        lambda: sptc_spmm_windows_ref(vals, meta_t, win),
+        lambda: torch.matmul(dense, win), TOL,
+        nbytes=(win.numel() + t_ * L * c) * 4 + vals.numel() * 8,
+        flops=2.0 * t_ * c * int(torch.count_nonzero(vals)),
+        shape=f"windows {tuple(win.shape)} values {tuple(vals.shape)} "
+              f"(swapped, float32)")
+    print(f"timing {canon} sptc_spmm (v1): kernel_ms {spmm['ms']:.4f} "
+          f"plain_ms {spmm['plain_ms']:.4f} library_ms(torch.matmul dense) "
+          f"{spmm['library_ms']:.4f} bound_ms {spmm['bound_ms']:.4f} "
+          f"({spmm['bound_by']}) launches {launches['sptc_spmm']} | "
+          f"{spmm['shape']} | card {smi}")
+    del win, dense
+    torch.cuda.empty_cache()
+
+    # conv1d at the serve shape and at the prefill_32k sequence length, x a
+    # column slice of the (B, T, 2*d_inner + 2*state + heads) projection
+    conv_rows = {}
+    d, proj_w, k = 5376, 10576, 4
+    for label, (b, t) in (("serve", (4, 512)), ("prefill_32k", (4, 32768))):
+        proj = randn(b, t, proj_w, dtype=torch.bfloat16, seed=t)
+        xc = proj[:, :, 5120:5120 + d]
+        wc = randn(k, d, dtype=torch.bfloat16, seed=k)
+        w_lib = wc.T.contiguous()[:, None, :]                      # (D, 1, K)
+        row = _time_row(
+            lambda: conv_ops.conv1d_causal(xc, wc),
+            lambda: conv1d_causal_plain(xc, wc),
+            lambda: F.conv1d(F.pad(xc.transpose(1, 2), (k - 1, 0)), w_lib,
+                             groups=d), TOL_BF16,
+            nbytes=2.0 * (2 * b * t * d + k * d), flops=2.0 * k * b * t * d,
+            shape=f"x {(b, t, d)} bf16 (column slice of {(b, t, proj_w)}), "
+                  f"w {(k, d)}", reps=20 if t <= 512 else 5)
+        conv_rows[label] = row
+        print(f"timing conv1d_causal {label}: kernel_ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} library_ms(F.conv1d) "
+              f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+              f"({row['bound_by']}) | {row['shape']} | card {smi}")
+        del proj, xc
+        torch.cuda.empty_cache()
+    results["timing"]["sptc_spmm_v1"] = spmm
+    results["timing"]["conv1d_causal"] = conv_rows
+
+    # -- phase lm: mamba2-2.7b served at full width and depth ----------------
+    lm = _phase_lm(dev, smi)
+    launches["conv1d_causal"] = lm["conv1d_launches"]
+    lm["conv_share_of_prefill"] = \
+        lm["n_layers"] * conv_rows["serve"]["ms"] / lm["prefill_ms"]
+    print(f"phase lm {ARCH}: the conv1d kernel is "
+          f"{100 * lm['conv_share_of_prefill']:.1f}% of the prefill time "
+          f"({lm['n_layers']} x {conv_rows['serve']['ms']:.4f} ms of "
+          f"{lm['prefill_ms']:.2f} ms) | card {smi}")
+    results["lm"] = lm
+
+    # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",
                      "src/repro/kernels/sptc_spmm/kernel.py:112"),
             "gemm": ("cuda_gemm", "src/repro_torch/kernels/csrc/windows_gemm.cu",
@@ -367,16 +733,23 @@ def main() -> int:
             "direct": ("cuda_direct",
                        "src/repro_torch/kernels/csrc/stencil_direct.cu",
                        "src/repro/kernels/stencil_direct/kernel.py:28")}
+    timed = {name: (src, repl, rows[canon][k], f"{canon}: ")
+             for k, (name, src, repl) in meta.items()}
+    timed["sptc_spmm"] = ("src/repro_torch/kernels/csrc/sptc_spmm.cu",
+                          "src/repro/kernels/sptc_spmm/kernel.py:56", spmm,
+                          f"{canon}: ")
+    timed["conv1d_causal"] = ("src/repro_torch/kernels/csrc/conv1d_causal.cu",
+                              "src/repro/kernels/conv1d/kernel.py:27",
+                              conv_rows["serve"], f"{ARCH} prefill: ")
     kernels = []
-    for k, (name, src, repl) in meta.items():
-        t = rows[canon][k]
+    for name, (src, repl, t, where) in timed.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
-                        "shape": f"{canon}: {t['shape']}"})
+                        "shape": where + t["shape"]})
     results["kernels"] = kernels
     results["card"] = smi
     OUT_DIR.mkdir(exist_ok=True)

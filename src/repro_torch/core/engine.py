@@ -45,6 +45,7 @@ from repro_torch.core.ir import BACKENDS, LoweredPlan, RowOp
 from repro_torch.core.sparsify import decode_24, sparsify_stencil_kernel
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.core.transform import default_l, kernel_matrix, lower_spec
+from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, fused_operand,
                                                sptc_spmm_fused)
 from repro_torch.kernels.stencil_gemm.ops import windows_gemm
@@ -53,25 +54,9 @@ __all__ = ["BACKENDS", "StencilEngine", "apply_stencil", "apply_1d",
            "resolve_device"]
 
 Tensor = torch.Tensor
-Device = Union[str, torch.device, None]
 ApplyFn = Callable[[Tensor], Tensor]
 #: one 1-D application: (x2d, n_out) -> (n_out, C)
 OpFn = Callable[[Tensor, int], Tensor]
-
-
-def resolve_device(device: Device) -> torch.device:
-    """``None`` -> the current CUDA device; raises if there is no card."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: StencilEngine runs on the card "
-                "by default; pass device='cpu' to run the plain torch "
-                "versions on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _rounded(w: float, dtype: torch.dtype) -> float:
@@ -408,16 +393,17 @@ def _emit_step(plan: LoweredPlan, device: torch.device,
     return _emit_const(plan, device, dtype)
 
 
-def emit(plan: LoweredPlan, device: Device = "cpu",
+def emit(plan: LoweredPlan, device: Device = None,
          dtype: torch.dtype = torch.float32) -> ApplyFn:
     """LoweredPlan -> function on tensors of ``dtype`` on ``device``.
 
-    All device tables are built here, once.  A temporal-blocked plan runs
-    ``k`` applications per call: the halo shrinks by ``r`` per step, so a
-    ``k·r``-halo input yields the interior update after ``k`` steps.
+    ``device=None`` is the card (raises without one).  All device tables
+    are built here, once.  A temporal-blocked plan runs ``k`` applications
+    per call: the halo shrinks by ``r`` per step, so a ``k·r``-halo input
+    yields the interior update after ``k`` steps.
     """
     plan.validate()
-    step = _emit_step(plan, torch.device(device), dtype)
+    step = _emit_step(plan, resolve_device(device), dtype)
     k = plan.emit.temporal_steps
     if k == 1:
         return step

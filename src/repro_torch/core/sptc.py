@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 
-def _segment_gather(meta: torch.Tensor, half: int) -> torch.Tensor:
+def segment_gather(meta: torch.Tensor, half: int) -> torch.Tensor:
+    """(M, K/2) RHS row of every compressed slot: 4 * (j // 2) + meta."""
     seg = (torch.arange(half, device=meta.device) // 2) * 4
     return seg[None, :] + meta.to(torch.int64)            # (M, K/2)
 
@@ -30,7 +31,7 @@ def sptc_matmul(values: torch.Tensor, meta: torch.Tensor,
     k = x.shape[0]
     if half * 2 != k:
         raise ValueError(f"values width {half} != K/2 = {k//2}")
-    xg = x[_segment_gather(meta, half)]                   # (M, K/2, N)
+    xg = x[segment_gather(meta, half)]                   # (M, K/2, N)
     return torch.einsum("mk,mkn->mn", values.to(x.dtype).float(),
                         xg.float()).to(x.dtype)
 
@@ -40,7 +41,7 @@ def sptc_matmul_dense_equiv(values: torch.Tensor, meta: torch.Tensor,
     """Decompress (values, meta) to the dense (M, K) permuted matrix."""
     m, half = values.shape
     out = torch.zeros((m, k), dtype=values.dtype, device=values.device)
-    return out.scatter_add_(1, _segment_gather(meta, half), values)
+    return out.scatter_add_(1, segment_gather(meta, half), values)
 
 
 def swap_rows(x: torch.Tensor, perm) -> torch.Tensor:

@@ -49,6 +49,10 @@ SIGNATURES: Dict[str, List[type]] = {
     "spider_windows_gemm": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "spider_stencil2d": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                          _I64, _I, _P],
+    "spider_sptc_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                         _I, _P],
+    "spider_conv1d_causal": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                             _I, _P],
 }
 
 

@@ -1,8 +1,9 @@
-"""Launcher of the fused SpTC CUDA kernel (``csrc/sptc_fused.cu``).
+"""Launchers of the two SpTC CUDA kernels.
 
-Replaces ``repro/kernels/sptc_spmm/kernel.py::_fused_kernel``.  The caller
-(:func:`repro_torch.kernels.sptc_spmm.ops.sptc_spmm_fused`) checks the
-arguments and allocates the output; this module only launches.
+``csrc/sptc_fused.cu`` replaces ``repro/kernels/sptc_spmm/kernel.py::
+_fused_kernel``; ``csrc/sptc_spmm.cu`` replaces the v1 ``_sptc_kernel``.
+The callers (:mod:`repro_torch.kernels.sptc_spmm.ops`) check the arguments
+and allocate the outputs; this module only launches.
 """
 from __future__ import annotations
 
@@ -25,3 +26,18 @@ def sptc_fused_launch(x2d: torch.Tensor, y: torch.Tensor,
             int(bf16_compute), DTYPE_CODES[x2d.dtype],
             stream_ptr(x2d.device))
     check(status, "spider_sptc_fused")
+
+
+def sptc_spmm_launch(values: torch.Tensor, meta: torch.Tensor,
+                     windows: torch.Tensor, y: torch.Tensor) -> None:
+    """v1 SpMM over (T, K, N) windows into (T, M, N); launch on the current
+    stream, returns without synchronising."""
+    lib = library()
+    t, _, n = windows.shape
+    m, kh = values.shape
+    with torch.cuda.device(windows.device):
+        status = lib.spider_sptc_spmm(
+            values.data_ptr(), meta.data_ptr(), windows.data_ptr(),
+            y.data_ptr(), m, kh, n, windows.stride(1), windows.stride(0), t,
+            DTYPE_CODES[windows.dtype], stream_ptr(windows.device))
+    check(status, "spider_sptc_spmm")

@@ -1,23 +1,29 @@
-"""Public wrapper of the fused SpTC kernel and the tables it reads.
+"""Public wrappers of the two SpTC kernels and the tables they read.
 
 :func:`fused_operand` turns a compressed operand into device tables once
 (the engine calls it in its constructor); :func:`sptc_spmm_fused` applies
-them.  On a CUDA tensor the wrapper launches the kernel or raises; it takes
-the plain torch version only for a tensor that lies on the CPU.
+them.  :func:`sptc_spmm` / :func:`sptc_spmm_windows` are the v1 compressed
+SpMM over a pre-swapped RHS.  On a CUDA tensor a wrapper launches its
+kernel or raises; it takes the plain torch version only for a tensor that
+lies on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.sparsify import (Sparse24, contiguous_band_values,
-                                       strided_swap_perm)
+from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
-from repro_torch.kernels.sptc_spmm.kernel import sptc_fused_launch
-from repro_torch.kernels.sptc_spmm.ref import sptc_fused_ref
+from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
+                                                  sptc_spmm_launch)
+from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                               sptc_spmm_windows_ref)
+
+if TYPE_CHECKING:
+    from repro_torch.core.sparsify import Sparse24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,17 +41,22 @@ class FusedOperand:
     star_fast: bool
 
 
-def fused_operand(operand: Sparse24, perm, L: int, *,
+def fused_operand(operand: "Sparse24", perm, L: int, *,
                   star_fast: Union[bool, str] = "auto",
                   dtype: torch.dtype = torch.float32,
-                  device: Union[str, torch.device] = "cpu") -> FusedOperand:
-    """Build the kernel's tables for ``operand`` on ``device``.
+                  device: Device = None) -> FusedOperand:
+    """Build the kernel's tables for ``operand`` on ``device`` (``None``:
+    the card, raising without one).
 
     ``star_fast``: ``"auto"`` uses the metadata-free banded path whenever
     the swap∘meta gather is the identity band of the taps; ``True``
     requires it (ValueError otherwise); ``False`` always decodes the
     metadata.
     """
+    # imported here: repro_torch.core's package imports the engine, which
+    # imports this module
+    from repro_torch.core.sparsify import (contiguous_band_values,
+                                           strided_swap_perm)
     if not np.array_equal(np.asarray(perm), strided_swap_perm(L)):
         raise ValueError(
             "sptc_spmm_fused requires the strided-swap permutation — the "
@@ -57,6 +68,7 @@ def fused_operand(operand: Sparse24, perm, L: int, *,
                          "of the taps; star fast path unavailable")
     vals = fast if fast is not None else operand.values
     words = np.ascontiguousarray(operand.meta_bits()).view(np.int32)
+    device = resolve_device(device)
     return FusedOperand(
         values=torch.as_tensor(np.asarray(vals), dtype=dtype, device=device),
         meta_words=torch.as_tensor(words, device=device),
@@ -119,3 +131,62 @@ def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
 
 
 sptc_spmm_fused.launches = 0    # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# v1: compressed SpMM over a pre-swapped RHS
+# ---------------------------------------------------------------------------
+
+def sptc_spmm(values: torch.Tensor, meta: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Compressed (M, K/2) x (K, N) -> (M, N): one tile of
+    :func:`sptc_spmm_windows`."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (K, N), got shape {tuple(x.shape)}")
+    return sptc_spmm_windows(values, meta, x[None])[0]
+
+
+def sptc_spmm_windows(values: torch.Tensor, meta: torch.Tensor,
+                      windows: torch.Tensor) -> torch.Tensor:
+    """Over the leading tile axis: (T, K, N) -> (T, M, N), one launch.
+
+    ``values`` (M, K/2) is cast to the windows' dtype (as the reference
+    casts it); ``meta`` (M, K/2) holds 2-bit positions in [0, 4).  The sums
+    are float32, the result in ``windows.dtype``; ``windows`` may be any
+    view with a unit column stride.
+    """
+    if values.dim() != 2 or meta.shape != values.shape:
+        raise ValueError(f"values and meta must both be (M, K/2), got "
+                         f"{tuple(values.shape)} and {tuple(meta.shape)}")
+    if windows.dim() != 3 or windows.shape[1] != 2 * values.shape[1]:
+        raise ValueError(f"windows must be (T, K={2 * values.shape[1]}, N), "
+                         f"got {tuple(windows.shape)}")
+    if windows.dtype not in DTYPE_CODES:
+        raise TypeError(f"windows dtype {windows.dtype} not in "
+                        f"{tuple(DTYPE_CODES)}")
+    if meta.dtype.is_floating_point or meta.dtype == torch.bool:
+        raise TypeError(f"meta must be an integer tensor, got {meta.dtype}")
+    if values.device != windows.device or meta.device != windows.device:
+        raise ValueError("values, meta and windows lie on different devices")
+    if windows.shape[2] > 1 and windows.stride(2) != 1:
+        raise ValueError("windows need a unit column stride")
+    if values.numel() * 8 > SMEM_LIMIT:
+        raise ValueError(f"an operand of {tuple(values.shape)} needs more "
+                         f"than {SMEM_LIMIT} bytes of shared memory per block")
+    values = values.to(windows.dtype)
+    if windows.device.type == "cpu":
+        return sptc_spmm_windows_ref(values, meta, windows)
+    if windows.device.type != "cuda":
+        raise ValueError(f"no kernel for device {windows.device}")
+    t, _, n = windows.shape
+    y = torch.empty((t, values.shape[0], n), dtype=windows.dtype,
+                    device=windows.device)
+    if y.numel() == 0:
+        return y
+    sptc_spmm_launch(values.contiguous(), meta.to(torch.int32).contiguous(),
+                     windows, y)
+    sptc_spmm_windows.launches += 1
+    return y
+
+
+sptc_spmm_windows.launches = 0    # type: ignore[attr-defined]

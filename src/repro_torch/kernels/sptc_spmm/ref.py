@@ -1,9 +1,13 @@
-"""Plain torch version of the fused SpTC kernel (``csrc/sptc_fused.cu``).
+"""Plain torch versions of the two SpTC kernels.
 
-It repeats the kernel's own steps with torch ops — unpack the 2-bit
-metadata from the packed words, apply the closed-form strided swap, read
-the window rows, multiply-add in float32 — so the packing is tested too,
-not only the stencil it encodes.
+:func:`sptc_fused_ref` (``csrc/sptc_fused.cu``) repeats the fused kernel's
+own steps with torch ops — unpack the 2-bit metadata from the packed words,
+apply the closed-form strided swap, read the window rows, multiply-add in
+float32 — so the packing is tested too, not only the stencil it encodes.
+
+:func:`sptc_spmm_ref` / :func:`sptc_spmm_windows_ref` (``csrc/sptc_spmm.cu``,
+the v1 compressed SpMM) are ``core/sptc.py``'s ``sptc_matmul``, the second
+written out over the tile axis.
 """
 from __future__ import annotations
 
@@ -11,6 +15,31 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def sptc_spmm_ref(values: torch.Tensor, meta: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(M, K/2) values + metadata  x  (K, N)  ->  (M, N)."""
+    # imported here (as below): repro_torch.core's package imports the
+    # engine, which imports this package
+    from repro_torch.core.sptc import sptc_matmul
+    return sptc_matmul(values, meta, x)
+
+
+def sptc_spmm_windows_ref(values: torch.Tensor, meta: torch.Tensor,
+                          windows: torch.Tensor) -> torch.Tensor:
+    """Over the leading tile axis: windows (T, K, N) -> (T, M, N).
+
+    Float32 accumulation, result in ``windows.dtype``.
+    """
+    from repro_torch.core.sptc import segment_gather
+    m, half = values.shape
+    if half * 2 != windows.shape[1]:
+        raise ValueError(f"values width {half} != K/2 = "
+                         f"{windows.shape[1] // 2}")
+    xg = windows[:, segment_gather(meta, half)]           # (T, M, K/2, N)
+    return torch.einsum("mk,tmkn->tmn", values.to(windows.dtype).float(),
+                        xg.float()).to(windows.dtype)
 
 
 def unpack_meta(meta_words: torch.Tensor, kh: int) -> torch.Tensor:

@@ -8,11 +8,12 @@ only for a tensor that lies on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
 from repro_torch.kernels.stencil_direct.kernel import stencil2d_launch
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
@@ -34,9 +35,10 @@ class Taps:
     rw: int
 
 
-def stencil_taps(weights: np.ndarray,
-                 device: Union[str, torch.device] = "cpu") -> Taps:
-    """Tap buffers of a 2-D weight array (a 1-D array is one row)."""
+def stencil_taps(weights: np.ndarray, device: Device = None) -> Taps:
+    """Tap buffers of a 2-D weight array (a 1-D array is one row), on
+    ``device`` (``None``: the card, raising without one)."""
+    device = resolve_device(device)
     weights = np.asarray(weights)
     if weights.ndim == 1:
         weights = weights.reshape(1, -1)

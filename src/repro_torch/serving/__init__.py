@@ -1,0 +1,13 @@
+from repro_torch.serving import cache
+from repro_torch.serving.engine import decode_step, generate, prefill
+from repro_torch.serving.lm_driver import GenerateDriver
+from repro_torch.serving.metrics import (GroupMetrics, LatencyWindow,
+                                         MetricsRegistry)
+from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
+                                           QueueFullError)
+
+__all__ = [
+    "BatchPolicy", "BatchScheduler", "GenerateDriver", "GroupMetrics",
+    "LatencyWindow", "MetricsRegistry", "QueueFullError", "cache",
+    "decode_step", "generate", "prefill",
+]

@@ -21,8 +21,9 @@ from repro_torch.core.engine import StencilEngine, apply_stencil
 from repro_torch.core.stencil import make_stencil
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sptc_spmm import ops as sptc_ops
-from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref, unpack_meta,
-                                               window_sources)
+from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                               sptc_spmm_windows_ref,
+                                               unpack_meta, window_sources)
 from repro_torch.kernels.stencil_direct import ops as direct_ops
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
 from repro_torch.kernels.stencil_gemm import ops as gemm_ops
@@ -85,7 +86,8 @@ def test_sptc_fused_bf16_compute_matches_pallas(star_fast):
     want = ref_fused(sk.sparse, sk.perm, jnp.asarray(x), n_out=n_out,
                      L=sk.L, star_fast=star_fast, compute_dtype="bfloat16",
                      interpret=True)
-    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, star_fast=star_fast)
+    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, star_fast=star_fast,
+                                device="cpu")
     got = sptc_ops.sptc_spmm_fused(op, torch.as_tensor(x), n_out=n_out,
                                    compute_dtype=torch.bfloat16)
     assert got.dtype == torch.float32
@@ -127,7 +129,7 @@ def test_stencil2d_ref_matches_pallas(shape, r, dims):
         size=(dims[0] + 2 * r, dims[1] + 2 * r)).astype(np.float32)
     want = stencil2d_call(jnp.asarray(x), taps=_taps(spec.weights), rh=r,
                           rw=r, th=8, interpret=True)
-    taps = direct_ops.stencil_taps(spec.weights)
+    taps = direct_ops.stencil_taps(spec.weights, "cpu")
     assert len(taps.host) == len(_taps(spec.weights))       # star zeros pruned
     got = direct_ops.stencil2d(taps, torch.as_tensor(x))
     assert tuple(got.shape) == dims
@@ -144,9 +146,108 @@ def test_stencil1d_matches_pallas(n, r):
     spec = make_stencil("box", 1, r, seed=3)
     x = np.random.default_rng(n).normal(size=(n + 2 * r,)).astype(np.float32)
     want = ref_stencil1d(spec.weights, jnp.asarray(x), interpret=True)
-    got = direct_ops.stencil1d(direct_ops.stencil_taps(spec.weights),
+    got = direct_ops.stencil1d(direct_ops.stencil_taps(spec.weights, "cpu"),
                                torch.as_tensor(x))
     np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+
+
+def _v1_operand(r, seed):
+    sk = sparsify.sparsify_stencil_kernel(
+        np.random.default_rng(seed).normal(size=2 * r + 1))
+    return sk, sk.values.astype(np.float32), sk.meta.astype(np.int32)
+
+
+@pytest.mark.parametrize("r,n", [(1, 64), (1, 200), (2, 1), (3, 384),
+                                 (7, 513)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sptc_spmm_v1_matches_pallas(r, n, dtype):
+    """v1 compressed SpMM (plain version on the CPU) against the reference's
+    ``_sptc_kernel`` in interpret mode and its jnp oracle."""
+    import jax.numpy as jnp
+    from repro.kernels.sptc_spmm.ops import sptc_spmm as ref_spmm
+    from repro.kernels.sptc_spmm.ref import sptc_spmm_ref as jnp_ref
+    sk, vals, meta = _v1_operand(r, seed=r + n)
+    x = np.random.default_rng(n).normal(size=(2 * sk.L, n)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_spmm(jnp.asarray(vals, jd), jnp.asarray(meta),
+                    jnp.asarray(x, jd), interpret=True)
+    got = sptc_ops.sptc_spmm(torch.as_tensor(vals).to(td),
+                             torch.as_tensor(meta), torch.as_tensor(x).to(td))
+    assert got.dtype == td and tuple(got.shape) == (sk.L, n)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(jnp_ref(jnp.asarray(vals, jd), jnp.asarray(meta),
+                                     jnp.asarray(x, jd)), np.float32), **tol)
+
+
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sptc_spmm_windows_v1_matches_pallas(t, dtype):
+    import jax.numpy as jnp
+    from repro.kernels.sptc_spmm.ops import sptc_spmm_windows as ref_windows
+    sk, vals, meta = _v1_operand(2, seed=t)
+    big = np.random.default_rng(t).normal(
+        size=(t, 2 * sk.L, 140)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_windows(jnp.asarray(vals, jd), jnp.asarray(meta),
+                       jnp.asarray(big[:, :, 5:135], jd), interpret=True)
+    win = torch.as_tensor(big).to(td)[:, :, 5:135]        # row stride > N
+    got = sptc_ops.sptc_spmm_windows(torch.as_tensor(vals),
+                                     torch.as_tensor(meta), win)
+    assert got.dtype == td and tuple(got.shape) == (t, sk.L, 130)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(want, np.float32),
+        **(F32_TOL if dtype == "float32" else BF16_TOL))
+    # the windows form is the single-tile form over the tile axis
+    for i in range(t):
+        np.testing.assert_array_equal(_np(got[i]), _np(sptc_ops.sptc_spmm(
+            torch.as_tensor(vals), torch.as_tensor(meta), win[i])))
+
+
+def test_sptc_spmm_v1_applies_the_stencil():
+    """Swapped windows through the compressed operand give the 1-D stencil,
+    as the paper's pipeline composes them (pre-swapped RHS, §3.3)."""
+    from repro_torch.core.engine import _windows
+    w = np.random.default_rng(5).normal(size=5)
+    sk = sparsify.sparsify_stencil_kernel(w)
+    n_out = 4 * sk.L + 3
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(n_out + 4, 6)).astype(np.float32))
+    win, ntiles = _windows(x, n_out, sk.L,
+                           order=torch.as_tensor(sk.perm, dtype=torch.int64))
+    y = sptc_ops.sptc_spmm_windows(
+        torch.as_tensor(sk.values, dtype=torch.float32),
+        torch.as_tensor(sk.meta), win.contiguous())
+    got = y.reshape(ntiles * sk.L, -1)[:n_out]
+    np.testing.assert_allclose(_np(got), _direct_1d(w, x.numpy(), n_out),
+                               **F32_TOL)
+
+
+def test_sptc_spmm_v1_wrapper_checks():
+    vals, meta = torch.ones(4, 4), torch.zeros(4, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="values and meta"):
+        sptc_ops.sptc_spmm(vals, meta[:, :2], torch.ones(8, 3))
+    with pytest.raises(ValueError, match="K=8"):
+        sptc_ops.sptc_spmm_windows(vals, meta, torch.ones(2, 6, 3))
+    with pytest.raises(ValueError, match=r"\(K, N\)"):
+        sptc_ops.sptc_spmm(vals, meta, torch.ones(2, 8, 3))
+    with pytest.raises(TypeError, match="dtype"):
+        sptc_ops.sptc_spmm(vals, meta, torch.ones(8, 3, dtype=torch.float64))
+    with pytest.raises(TypeError, match="integer"):
+        sptc_ops.sptc_spmm(vals, meta.float(), torch.ones(8, 3))
+    with pytest.raises(ValueError, match="unit column stride"):
+        sptc_ops.sptc_spmm(vals, meta, torch.ones(3, 8).T)
+    with pytest.raises(ValueError, match="shared memory"):
+        sptc_ops.sptc_spmm(torch.ones(64, 128),
+                           torch.zeros(64, 128, dtype=torch.int32),
+                           torch.ones(256, 3))
+    # meta 0 everywhere: slot j reads RHS row 4*(j//2), so each output is
+    # x[0] + x[0] + x[4] + x[4]
+    x = torch.arange(24.0).reshape(8, 3)
+    y = sptc_ops.sptc_spmm(vals, meta.long(), x)
+    np.testing.assert_array_equal(_np(y), np.tile(2 * (_np(x[0]) + _np(x[4])),
+                                                  (4, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +330,9 @@ def test_meta_unpack_and_swap_match_gather_schedule(r, L_extra):
 def test_fused_operand_checks():
     sk = sparsify.sparsify_stencil_kernel(np.ones(3))
     with pytest.raises(ValueError, match="strided-swap"):
-        sptc_ops.fused_operand(sk.sparse, np.arange(2 * sk.L), sk.L)
-    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L)
+        sptc_ops.fused_operand(sk.sparse, np.arange(2 * sk.L), sk.L,
+                               device="cpu")
+    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, device="cpu")
     assert op.star_fast and op.meta_words.dtype == torch.int32
     x = torch.ones((20, 6))
     with pytest.raises(TypeError, match="dtype"):
@@ -254,7 +356,7 @@ def test_gemm_and_direct_wrapper_checks():
     with pytest.raises(ValueError, match="contiguous"):
         gemm_ops.windows_gemm(torch.ones(4, 8),
                               torch.ones(2, 3, 8).transpose(1, 2))
-    taps = direct_ops.stencil_taps(np.ones((3, 3)))
+    taps = direct_ops.stencil_taps(np.ones((3, 3)), "cpu")
     with pytest.raises(ValueError, match="halo"):
         direct_ops.stencil2d(taps, torch.ones(1, 5))
     with pytest.raises(TypeError, match="dtype"):
@@ -267,7 +369,9 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.core.engine,"
             " repro_torch.kernels.dispatch, repro_torch.kernels.build,"
             " repro_torch.kernels.sptc_spmm, repro_torch.kernels.stencil_gemm,"
-            " repro_torch.kernels.stencil_direct\n"
+            " repro_torch.kernels.stencil_direct, repro_torch.models,"
+            " repro_torch.serving, repro_torch.configs,"
+            " repro_torch.launch.serve, repro_torch.kernels.conv1d\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")
@@ -276,6 +380,19 @@ def test_port_imports_neither_jax_nor_reference():
         p for p in (src, os.environ.get("PYTHONPATH")) if p))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env=env)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.sptc_spmm", "repro_torch.kernels.conv1d",
+    "repro_torch.models", "repro_torch.serving", "repro_torch.launch.serve"])
+def test_port_module_imports_alone(module):
+    """Each package imports first in a fresh interpreter (``core``'s
+    package imports the engine, which imports ``kernels.sptc_spmm``)."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    subprocess.run([sys.executable, "-c", f"import {module}"], check=True,
+                   timeout=120, env=env)
 
 
 # ---------------------------------------------------------------------------
@@ -369,3 +486,25 @@ def test_cuda_engine_backends_match_direct(cuda_device, shape, ndim, r):
         got = StencilEngine(spec, b)(x)
         torch.cuda.synchronize()
         _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("n", [1, 37, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sptc_spmm_v1_matches_plain(cuda_device, m, n, dtype):
+    dt = getattr(torch, dtype)
+    sk = sparsify.sparsify_stencil_kernel(
+        np.random.default_rng(m).normal(size=m - 1), L=m)     # (m, m) operand
+    vals = torch.as_tensor(sk.values, device=cuda_device).to(dt)
+    meta = torch.as_tensor(sk.meta, device=cuda_device)
+    big = torch.randn(5, 2 * m, n + 3, device=cuda_device).to(dt)
+    win = big[:, :, 2:2 + n]                               # row stride > N
+    before = sptc_ops.sptc_spmm_windows.launches
+    got = sptc_ops.sptc_spmm_windows(vals, meta, win)
+    one = sptc_ops.sptc_spmm(vals, meta, win[3])
+    assert sptc_ops.sptc_spmm_windows.launches == before + 2
+    want = sptc_spmm_windows_ref(vals, meta, win)
+    torch.cuda.synchronize()
+    _close(got, want, dt)
+    _close(one, want[3], dt)
