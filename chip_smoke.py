@@ -12,8 +12,9 @@ after:
   ``cuda_gemm`` and ``cuda_direct`` backends) over the whole paper suite at
   the paper's size — 10240 x 10240 float32 grids for 2-D, 104,857,600
   points for 1-D — against the ``direct`` backend on the card;
-* the v1 compressed SpMM entry (``sptc_spmm_windows``) applying box-2d1r
-  at 10240 x 10240 from swapped windows, against ``direct``;
+* the v1 compressed SpMM entry (``apply_sptc_v1``, one
+  ``sptc_spmm_windows`` launch per row op) applying box-2d1r at
+  10240 x 10240 from swapped windows, against ``direct``;
 * serving ``mamba2-2.7b`` at full width and depth (64 layers, bf16, random
   weights from a seed) through ``GenerateDriver``: 8 requests of 512-token
   prompts, 32 new tokens each, with the causal-conv1d kernel in every
@@ -27,6 +28,7 @@ nothing of JAX or of the JAX reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -43,19 +45,35 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 TOL = 3e-5                           # f32: |got - want| <= TOL * (1 + |want|)
 TOL_BF16 = 1e-2                      # bf16 storage: one output rounding step
-#: kernel vs plain model logits, relative to 1 + |plain|.  f32: the conv
-#: kernel's fused multiply-adds against separate rounding; bf16: the plain
-#: model's conv (the reference oracle) rounds to bf16 after every tap, the
-#: kernel once, and the difference runs through both layers into the logits
+#: the model cut to 2 layers, logits with the conv kernel against the same
+#: model whose conv is the kernel's plain version (f32 sums in the same tap
+#: order, one rounding), relative to 1 + |plain|.  In f32 the kernel's fused
+#: multiply-adds round the products differently (a few ulps); a product of
+#: two bf16 values is exact in f32, so in bf16 the two agree bit for bit
+#: and the f32 limit holds there too
 LM_TOL_F32 = 1e-4
-LM_TOL_BF16 = 0.25
+LM_TOL_BF16 = 1e-4
+#: the same logits against use_kernels=False, whose conv (the reference's
+#: oracle) rounds to bf16 after every tap: a wider limit in bf16
+LM_TOL_OFF = {"float32": 1e-4, "bfloat16": 0.25}
 ARCH = "mamba2-2.7b"
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH = 8, 512, 32, 4
 OUT_DIR = ROOT / "chiprun_out"
+#: GPU clock cycles of the spin kernel that holds the stream while the host
+#: enqueues a timed call: about 1 ms at the H100's 1.98 GHz
+SPIN_CYCLES = 2_000_000
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+def _time_ms(fn, reps: int, hold: bool = True) -> float:
+    """Median time of ``fn`` between two CUDA events over ``reps`` runs,
+    after one warm-up.
+
+    ``hold``: a spin kernel of ``SPIN_CYCLES`` runs on the stream before
+    the first event, so the host has enqueued ``fn``'s launches before the
+    device reaches them: the events bracket device time.  Without it they
+    also bracket the host's launch latency, which is most of a kernel of
+    tens of microseconds.
+    """
     import torch
     fn()
     torch.cuda.synchronize()
@@ -63,12 +81,32 @@ def _time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / (1 + |want|): the measure ``_err`` limits."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (1 + want.float().abs())).max())
+
+
+@contextlib.contextmanager
+def _model_conv(fn):
+    """Run the Mamba2 model's ``use_kernels`` conv through ``fn``."""
+    from repro_torch.models import ssm
+    kept = ssm.conv1d_causal
+    ssm.conv1d_causal = fn
+    try:
+        yield
+    finally:
+        ssm.conv1d_causal = kept
 
 
 def _err(got, want, tol: float) -> float:
@@ -95,37 +133,8 @@ def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
     bound, by = _bound_ms(nbytes, flops)
     return {"ms": _time_ms(kern, reps), "plain_ms": _time_ms(plain, 5),
             "library_ms": _time_ms(lib, reps), "bound_ms": bound,
-            "bound_by": by, "max_abs_err": err, "shape": shape}
-
-
-def _v1_stencil(spec, x, dev):
-    """One application of ``spec`` through the v1 SpMM entry: per row op of
-    the plan, the strided-swapped windows of its input slice times the
-    2:4-compressed operand (``sptc_spmm_windows``), accumulated."""
-    import torch
-    from repro_torch.core.engine import _op_slice, _windows
-    from repro_torch.core.transform import lower_spec
-    from repro_torch.kernels.sptc_spmm.ops import sptc_spmm_windows
-    plan = lower_spec(spec, backend="sptc")
-    r, d, L = spec.radius, spec.ndim, plan.L
-    perm = torch.as_tensor(plan.sparsify.perm, dtype=torch.int64, device=dev)
-    out_shape = tuple(s - 2 * r for s in x.shape)
-    acc = torch.zeros(out_shape, dtype=x.dtype, device=dev)
-    for op in plan.decompose.ops:
-        sl, axis = _op_slice(plan.decompose.mode, op, out_shape, r, d)
-        n_out = out_shape[axis]
-        x2d = torch.movedim(x[sl], axis, 0).contiguous()
-        x2d = x2d.reshape(x2d.shape[0], -1)
-        win, ntiles = _windows(x2d, n_out, L, order=perm)
-        opnd = plan.sparsify.operands[op.operand]
-        y = sptc_spmm_windows(
-            torch.as_tensor(opnd.values, dtype=x.dtype, device=dev),
-            torch.as_tensor(opnd.meta, device=dev), win.contiguous())
-        y = y.reshape(ntiles * L, -1)[:n_out]
-        rest = tuple(s for a, s in enumerate(out_shape) if a != axis)
-        acc = acc + torch.movedim(y.reshape((n_out,) + rest), 0, axis)
-        del x2d, win, y
-    return acc
+            "bound_by": by, "max_abs_err": err, "shape": shape,
+            "launch_ms": _time_ms(kern, reps, hold=False)}
 
 
 def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
@@ -150,7 +159,7 @@ def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
         events = prof.key_averages()
     except RuntimeError as exc:            # the profiler, not the work
         print(f"profile {label}: torch.profiler failed ({exc})")
-        return {"wall_ms": None, "device_ms": None}
+        return {"wall_ms": None, "device_ms": None, "rows": []}
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in events                # the kernels, not the ops
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
@@ -159,7 +168,7 @@ def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
     launches = sum(r[1] for r in rows)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time")
-        return {"wall_ms": wall_ms, "device_ms": None}
+        return {"wall_ms": wall_ms, "device_ms": None, "rows": []}
     print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
           f"{busy_ms:.2f} ms in {launches} kernels, idle share "
           f"{100 * max(0.0, 1 - busy_ms / wall_ms):.0f}% | card {smi}")
@@ -167,7 +176,8 @@ def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<5d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": launches,
             "top": [{"ms": ms, "count": n, "name": key}
-                    for ms, n, key in rows[:top]]}
+                    for ms, n, key in rows[:top]],
+            "rows": rows}
 
 
 def _phase_lm(dev, smi: str) -> dict:
@@ -176,6 +186,7 @@ def _phase_lm(dev, smi: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
     from repro_torch.models import model as M
     from repro_torch.models.nn import count_params
     from repro_torch.serving import BatchPolicy, GenerateDriver
@@ -183,21 +194,46 @@ def _phase_lm(dev, smi: str) -> dict:
 
     rng = np.random.default_rng(2)
     out: dict = {}
-    # the config cut to 2 layers: the kernel against the plain conv
+    # the config cut to 2 layers: the kernel against its plain version in
+    # the same model, against use_kernels=False, and a planted fault (the
+    # plain conv with its taps shifted by one) that the first check must fail
     for dt, tol in (("float32", LM_TOL_F32), ("bfloat16", LM_TOL_BF16)):
         cfg2 = get_config(ARCH).scaled(n_layers=2, dtype=dt, use_kernels=True)
         p2 = M.init_params(cfg2, 1, device=dev)
         toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (2, 64)),
                                device=dev)
+        conv_ops.conv1d_causal.launches = 0
         on = M.forward(p2, cfg2, toks)[0]
+        if conv_ops.conv1d_causal.launches != cfg2.n_layers:
+            raise AssertionError("the 2-layer model did not run the kernel")
+        with _model_conv(conv1d_causal_plain):
+            plain = M.forward(p2, cfg2, toks)[0]
+        with _model_conv(lambda x, w: conv1d_causal_plain(
+                x, torch.roll(w, 1, dims=0))):
+            fault = M.forward(p2, cfg2, toks)[0]
         off = M.forward(p2, cfg2.scaled(use_kernels=False), toks)[0]
-        err = _err(on, off, tol)
-        mean = float((on - off).abs().mean())
-        out[f"two_layer_{dt}"] = {"max_abs_err": err, "mean_abs_err": mean}
-        print(f"phase lm {ARCH} cut to 2 layers, {dt}: prefill logits with "
-              f"use_kernels on vs off, max |err| {err:.3g}, mean {mean:.3g} "
-              f"(tol {tol} relative to 1 + |off|)")
-        del p2, on, off
+        row = {"rel_err_vs_plain": _rel(on, plain),
+               "max_abs_err_vs_plain": float((on - plain).abs().max()),
+               "mean_abs_err_vs_plain": float((on - plain).abs().mean()),
+               "rel_err_vs_off": _rel(on, off),
+               "max_abs_err_vs_off": float((on - off).abs().max()),
+               "planted_fault_rel_err": _rel(fault, plain),
+               "tol": tol, "tol_off": LM_TOL_OFF[dt]}
+        out[f"two_layer_{dt}"] = row
+        print(f"phase lm {ARCH} cut to 2 layers, {dt}: prefill logits, "
+              f"kernel vs its plain version in the model: max rel err "
+              f"{row['rel_err_vs_plain']:.3g} (max |err| "
+              f"{row['max_abs_err_vs_plain']:.3g}, mean "
+              f"{row['mean_abs_err_vs_plain']:.3g}; tol {tol}); vs "
+              f"use_kernels=False {row['rel_err_vs_off']:.3g} (tol "
+              f"{LM_TOL_OFF[dt]}); planted fault (taps shifted by one) vs "
+              f"plain {row['planted_fault_rel_err']:.3g}")
+        if row["rel_err_vs_plain"] > tol or \
+                row["rel_err_vs_off"] > LM_TOL_OFF[dt]:
+            raise AssertionError(f"{dt}: kernel model outside its limits")
+        if row["planted_fault_rel_err"] <= tol:
+            raise AssertionError(f"{dt}: a planted fault passes tol {tol}")
+        del p2, on, plain, fault, off
     torch.cuda.empty_cache()
 
     cfg = get_config(ARCH).scaled(use_kernels=True)
@@ -253,14 +289,20 @@ def _phase_lm(dev, smi: str) -> dict:
     if not torch.equal(first.to(served.dtype), served):
         raise AssertionError(f"served first tokens {served.tolist()} != "
                              f"prefill argmax {first.tolist()}")
+    with _model_conv(conv1d_causal_plain):
+        plain = M.forward(params, cfg, batch0)[0]
+    full_err = _err(logits, plain, LM_TOL_BF16)
     plain = M.forward(params, cfg.scaled(use_kernels=False), batch0)[0]
     full_diff = float((plain - logits).abs().max())
     logit_max = float(plain.abs().max())
     del plain
     print(f"phase lm {ARCH}: prefill logits finite, served first tokens = "
-          f"argmax; full depth use_kernels on vs off max |logit diff| "
-          f"{full_diff:.3g} of max |logit| {logit_max:.3g} (information only)")
-    out["full_depth_bf16"] = {"max_abs_logit_diff": full_diff,
+          f"argmax; full depth, kernel vs its plain version in the model max "
+          f"|logit diff| {full_err:.3g} (tol {LM_TOL_BF16}); use_kernels on "
+          f"vs off max |logit diff| {full_diff:.3g} of max |logit| "
+          f"{logit_max:.3g} (information only)")
+    out["full_depth_bf16"] = {"max_abs_err_vs_plain": full_err,
+                              "max_abs_logit_diff": full_diff,
                               "max_abs_logit": logit_max}
     # the same comparison in float32 (information only): without bf16's
     # per-tap rounding in the plain conv, the two runs differ by sum order
@@ -300,11 +342,29 @@ def _phase_lm(dev, smi: str) -> dict:
     print(f"timing {ARCH} prefill {MAX_BATCH} x {PROMPT_LEN}: {prefill_ms:.2f} "
           f"ms ({MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f} tok/s); "
           f"decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | card {smi}")
-    out["profile"] = {
-        "prefill": _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
-                            f"prefill {MAX_BATCH} x {PROMPT_LEN}", smi),
-        "decode_step": _profile(lambda: E.decode_step(params, cfg, cc, tok),
-                                f"decode step at batch {MAX_BATCH}", smi)}
+    prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
+                    f"prefill {MAX_BATCH} x {PROMPT_LEN}", smi)
+    # the conv kernel's device time inside that prefill, by kernel name
+    conv = [(ms, n) for ms, n, key in prof.pop("rows")
+            if "conv1d_causal_kernel" in key]
+    if conv and prof["device_ms"]:
+        c_ms, c_n = sum(r[0] for r in conv), sum(r[1] for r in conv)
+        out["conv_in_prefill"] = {
+            "ms": c_ms, "launches": c_n,
+            "share_of_device": c_ms / prof["device_ms"],
+            "share_of_wall": c_ms / prof["wall_ms"]}
+        print(f"phase lm {ARCH}: conv1d_causal_kernel in the profiled "
+              f"prefill: {c_ms:.3f} ms in {c_n} launches, "
+              f"{100 * c_ms / prof['device_ms']:.2f}% of device time, "
+              f"{100 * c_ms / prof['wall_ms']:.2f}% of the wall | card {smi}")
+    else:
+        out["conv_in_prefill"] = None
+        print(f"phase lm {ARCH}: conv share of prefill not measured (the "
+              f"profile holds no conv1d_causal_kernel row)")
+    dec = _profile(lambda: E.decode_step(params, cfg, cc, tok),
+                   f"decode step at batch {MAX_BATCH}", smi)
+    dec.pop("rows")
+    out["profile"] = {"prefill": prof, "decode_step": dec}
     out.update({"params": n_params, "serve_wall_s": wall, "batches": batches,
                 "conv1d_launches": launches, "metrics": stats,
                 "prefill_ms": prefill_ms,
@@ -323,7 +383,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
-    from repro_torch.core.engine import StencilEngine, _windows
+    from repro_torch.core.engine import (StencilEngine, apply_sptc_v1,
+                                         tile_windows)
     from repro_torch.core.sparsify import sparsify_stencil_kernel
     from repro_torch.core.sptc import sptc_matmul_dense_equiv
     from repro_torch.core.stencil import paper_suite
@@ -512,12 +573,12 @@ def main() -> int:
     want = StencilEngine(box1, "direct", device=dev)(x)
     sptc_ops.sptc_spmm_windows.launches = 0
     t0 = time.perf_counter()
-    got = _v1_stencil(box1, x, dev)
+    got = apply_sptc_v1(box1, x)
     torch.cuda.synchronize()
     launches["sptc_spmm"] = sptc_ops.sptc_spmm_windows.launches
     e_v1 = _err(got, want, TOL)
     print(f"phase 3b v1 path: box-2d1r {N_2D}x{N_2D} through "
-          f"sptc_spmm_windows in {time.perf_counter() - t0:.2f} s, max |err| "
+          f"apply_sptc_v1 in {time.perf_counter() - t0:.2f} s, max |err| "
           f"vs direct {e_v1:.3g}, launches {launches['sptc_spmm']}")
     if launches["sptc_spmm"] == 0:
         raise AssertionError("v1 path never launched the sptc_spmm kernel")
@@ -561,7 +622,7 @@ def main() -> int:
         km = torch.as_tensor(
             StencilEngine(spec, "cuda_gemm", device=dev).plan_ir.kernel
             .matrices[0], dtype=f32, device=dev)
-        win = _windows(x2d, n_out, plan.L)[0].contiguous()
+        win = tile_windows(x2d, n_out, plan.L)[0].contiguous()
         app["gemm"] = (lambda: gemm_ops.windows_gemm(km, win),
                        lambda: windows_gemm_ref(km, win))
         taps = direct_ops.stencil_taps(spec.weights, dev)
@@ -586,6 +647,7 @@ def main() -> int:
             ms = _time_ms(kern, 20)
             plain_ms = _time_ms(plain, 5)
             library_ms = _time_ms(lib[k], 20)
+            launch_ms = _time_ms(kern, 20, hold=False)
             if k == "sptc":
                 nbytes = (x2d.shape[0] * c + n_out * c) * 4
                 flops = 2.0 * -(-n_out // plan.L) * c * \
@@ -603,14 +665,16 @@ def main() -> int:
             bound, by = _bound_ms(nbytes, flops)
             line[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-                       "library_max_abs_diff": lib_err, "shape": shape}
-            print(f"timing {spec.name} {k}: kernel_ms {ms:.4f} plain_ms "
+                       "library_max_abs_diff": lib_err, "shape": shape,
+                       "launch_ms": launch_ms}
+            print(f"timing {spec.name} {k}: kernel_ms {ms:.4f} (with the "
+                  f"host's launch {launch_ms:.4f}) plain_ms "
                   f"{plain_ms:.4f} library_ms(F.conv2d) {library_ms:.4f} "
                   f"bound_ms {bound:.4f} ({by}) launches "
                   f"{launches['cuda_' + k]} | {shape} | card {smi}")
         del app, lib, win, x2d, conv_in
         # end to end: engine GStencil/s for each backend, F.conv2d beside it
-        conv_ms = _time_ms(lambda: F.conv2d(full_in, full_w), 10)
+        conv_ms = _time_ms(lambda: F.conv2d(full_in, full_w), 10, hold=False)
         e2e = {}
         for b in ("direct",) + backends:
             counters_before = {n: f.launches for n, f in counters.items()}
@@ -618,7 +682,7 @@ def main() -> int:
             eng(x)
             per_call = {n: f.launches - counters_before[n]
                         for n, f in counters.items()}
-            e_ms = _time_ms(lambda: eng(x), 10)
+            e_ms = _time_ms(lambda: eng(x), 10, hold=False)
             kern_ms = sum(per_call.get(f"cuda_{k}", 0) * line[k]["ms"]
                           for k in line) if b != "direct" else None
             e2e[b] = {"ms": e_ms, "gstencil_s": pts / e_ms / 1e6,
@@ -633,7 +697,7 @@ def main() -> int:
                     if mode == "rows" or op.axis == 1:
                         u = op.lead[0] if mode == "rows" else r
                         x[u:u + N_2D, :].T.contiguous()
-            copy_ms = _time_ms(copies, 10)
+            copy_ms = _time_ms(copies, 10, hold=False)
             e2e["cuda_sptc"]["transpose_copy_ms"] = copy_ms
             e2e["cuda_sptc"]["transpose_copy_share"] = \
                 copy_ms / e2e["cuda_sptc"]["ms"]
@@ -664,7 +728,7 @@ def main() -> int:
     x = randn(N_2D + 2, N_2D + 2, seed=3)
     x2d = x[0:N_2D, :].T.contiguous()
     perm = torch.as_tensor(plan.sparsify.perm, dtype=torch.int64, device=dev)
-    win = _windows(x2d, N_2D, L, order=perm)[0].contiguous()
+    win = tile_windows(x2d, N_2D, L, order=perm)[0].contiguous()
     del x, x2d
     opnd = plan.sparsify.operands[0]
     vals = torch.as_tensor(opnd.values, dtype=f32, device=dev)
@@ -679,8 +743,8 @@ def main() -> int:
         flops=2.0 * t_ * c * int(torch.count_nonzero(vals)),
         shape=f"windows {tuple(win.shape)} values {tuple(vals.shape)} "
               f"(swapped, float32)")
-    print(f"timing {canon} sptc_spmm (v1): kernel_ms {spmm['ms']:.4f} "
-          f"plain_ms {spmm['plain_ms']:.4f} library_ms(torch.matmul dense) "
+    print(f"timing {canon} sptc_spmm (v1): kernel_ms {spmm['ms']:.4f} (with "
+          f"the host's launch {spmm['launch_ms']:.4f}) plain_ms {spmm['plain_ms']:.4f} library_ms(torch.matmul dense) "
           f"{spmm['library_ms']:.4f} bound_ms {spmm['bound_ms']:.4f} "
           f"({spmm['bound_by']}) launches {launches['sptc_spmm']} | "
           f"{spmm['shape']} | card {smi}")
@@ -705,8 +769,8 @@ def main() -> int:
             shape=f"x {(b, t, d)} bf16 (column slice of {(b, t, proj_w)}), "
                   f"w {(k, d)}", reps=20 if t <= 512 else 5)
         conv_rows[label] = row
-        print(f"timing conv1d_causal {label}: kernel_ms {row['ms']:.4f} "
-              f"plain_ms {row['plain_ms']:.4f} library_ms(F.conv1d) "
+        print(f"timing conv1d_causal {label}: kernel_ms {row['ms']:.4f} (with "
+              f"the host's launch {row['launch_ms']:.4f}) plain_ms {row['plain_ms']:.4f} library_ms(F.conv1d) "
               f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
               f"({row['bound_by']}) | {row['shape']} | card {smi}")
         del proj, xc
@@ -717,12 +781,6 @@ def main() -> int:
     # -- phase lm: mamba2-2.7b served at full width and depth ----------------
     lm = _phase_lm(dev, smi)
     launches["conv1d_causal"] = lm["conv1d_launches"]
-    lm["conv_share_of_prefill"] = \
-        lm["n_layers"] * conv_rows["serve"]["ms"] / lm["prefill_ms"]
-    print(f"phase lm {ARCH}: the conv1d kernel is "
-          f"{100 * lm['conv_share_of_prefill']:.1f}% of the prefill time "
-          f"({lm['n_layers']} x {conv_rows['serve']['ms']:.4f} ms of "
-          f"{lm['prefill_ms']:.2f} ms) | card {smi}")
     results["lm"] = lm
 
     # -- phase 5: summary -----------------------------------------------------

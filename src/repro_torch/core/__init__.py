@@ -9,7 +9,8 @@ from repro_torch.core.sparsify import (Sparse24, SparseStencilKernel,
                                        sparsify_stencil_kernel,
                                        strided_swap_perm)
 from repro_torch.core.ir import BACKENDS, LoweredPlan
-from repro_torch.core.engine import StencilEngine, apply_1d, apply_stencil
+from repro_torch.core.engine import (StencilEngine, apply_1d, apply_sptc_v1,
+                                     apply_stencil, tile_windows)
 from repro_torch.core.convert import coefficients_from_array, spec_from_arrays
 from repro_torch.core import sptc
 
@@ -19,5 +20,5 @@ __all__ = [
     "SparseStencilKernel", "encode_24", "decode_24", "is_24_sparse",
     "strided_swap_perm", "sparsify_matrices", "sparsify_stencil_kernel",
     "BACKENDS", "LoweredPlan", "StencilEngine", "apply_stencil", "apply_1d",
-    "coefficients_from_array", "spec_from_arrays", "sptc",
+    "apply_sptc_v1", "tile_windows", "coefficients_from_array", "spec_from_arrays", "sptc",
 ]

@@ -47,11 +47,12 @@ from repro_torch.core.stencil import StencilSpec
 from repro_torch.core.transform import default_l, kernel_matrix, lower_spec
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, fused_operand,
-                                               sptc_spmm_fused)
+                                               sptc_spmm_fused,
+                                               sptc_spmm_windows)
 from repro_torch.kernels.stencil_gemm.ops import windows_gemm
 
 __all__ = ["BACKENDS", "StencilEngine", "apply_stencil", "apply_1d",
-           "resolve_device"]
+           "apply_sptc_v1", "resolve_device", "tile_windows"]
 
 Tensor = torch.Tensor
 ApplyFn = Callable[[Tensor], Tensor]
@@ -84,8 +85,8 @@ def _pad_tiles(x2d: Tensor, n_out: int, L: int) -> Tuple[Tensor, int]:
     return (F.pad(x2d, (0, 0, 0, extra)) if extra > 0 else x2d[:need]), ntiles
 
 
-def _windows(x2d: Tensor, n_out: int, L: int,
-             order: Optional[Tensor] = None) -> Tuple[Tensor, int]:
+def tile_windows(x2d: Tensor, n_out: int, L: int,
+                 order: Optional[Tensor] = None) -> Tuple[Tensor, int]:
     """Overlapping (ntiles, 2L, C) windows of a (rows, C) input.
 
     Tile t covers outputs [tL, tL+L) and reads input rows [tL, tL+2L).
@@ -112,7 +113,7 @@ def _op_direct(taps: Sequence[Tuple[int, Union[float, Tensor]]], x2d: Tensor,
 
 
 def _op_gemm(km: Tensor, x2d: Tensor, n_out: int, L: int) -> Tensor:
-    win, ntiles = _windows(x2d, n_out, L)
+    win, ntiles = tile_windows(x2d, n_out, L)
     y = torch.einsum("lk,tkc->tlc", km.float(), win.float()).to(x2d.dtype)
     return y.reshape(ntiles * L, -1)[:n_out]
 
@@ -132,8 +133,17 @@ def _op_sptc(values: Tensor, comb: Tensor, x2d: Tensor, n_out: int,
 
 
 def _op_cuda_gemm(km: Tensor, x2d: Tensor, n_out: int, L: int) -> Tensor:
-    win, ntiles = _windows(x2d, n_out, L)
+    win, ntiles = tile_windows(x2d, n_out, L)
     y = windows_gemm(km, win.contiguous())
+    return y.reshape(ntiles * L, -1)[:n_out]
+
+
+def _op_spmm_v1(values: Tensor, meta: Tensor, order: Tensor, x2d: Tensor,
+                n_out: int, L: int) -> Tensor:
+    """v1: the strided swap as a window gather outside the kernel, then the
+    compressed SpMM over all tiles in one ``sptc_spmm_windows`` launch."""
+    win, ntiles = tile_windows(x2d, n_out, L, order=order)
+    y = sptc_spmm_windows(values, meta, win.contiguous())
     return y.reshape(ntiles * L, -1)[:n_out]
 
 
@@ -173,7 +183,7 @@ def _values_tensor(w2d: np.ndarray, tap_tbl: np.ndarray, ntiles: int,
 
 
 def _op_var_gemm(V: Tensor, x2d: Tensor, n_out: int, L: int) -> Tensor:
-    win, ntiles = _windows(x2d, n_out, L)
+    win, ntiles = tile_windows(x2d, n_out, L)
     y = torch.einsum("tlsc,tsc->tlc", V.float(), win.float()).to(x2d.dtype)
     return y.reshape(ntiles * L, -1)[:n_out]
 
@@ -303,7 +313,7 @@ def _emit_fused_2d(plan: LoweredPlan, device: torch.device,
         h_out = h_in - 2 * r
         w_out = x.shape[1] - 2 * r
         # zero-cost row swap: perm folds into the window gather (§3.3)
-        win, ntiles = _windows(x.T, w_out, L, order=order)   # (T, 2L, H+2r)
+        win, ntiles = tile_windows(x.T, w_out, L, order=order)  # (T,2L,H+2r)
         y = torch.einsum("lk,tkc->tlc", k_all.float(), win.float()
                          ).to(x.dtype)                       # (T, R*L, H+2r)
         yr = y.reshape(ntiles, R, L, h_in).permute(1, 0, 2, 3
@@ -492,6 +502,33 @@ def apply_stencil(spec: StencilSpec, x: Tensor, backend: str = "direct",
                         coefficients=coefficients, device=x.device,
                         dtype=x.dtype)
     return eng(x)
+
+
+def apply_sptc_v1(spec: StencilSpec, x: Tensor,
+                  L: Optional[int] = None) -> Tensor:
+    """One application of ``spec`` through the v1 compressed SpMM entry.
+
+    The sptc plan's row ops run on ``x``'s device and dtype, each as
+    strided-swapped windows of its input slice times its 2:4-compressed
+    operand (:func:`~repro_torch.kernels.sptc_spmm.ops.sptc_spmm_windows`),
+    summed.  Builds its tables on every call; constant coefficients, one
+    step.
+    """
+    plan = lower_spec(spec, backend="sptc", L=L)
+    r, d, L = spec.radius, spec.ndim, plan.L
+    sp = plan.sparsify
+    assert sp is not None
+    dev = x.device
+    order = torch.as_tensor(sp.perm, dtype=torch.int64, device=dev)
+    fns = [functools.partial(_op_spmm_v1, _tensor(o.values, x.dtype, dev),
+                             torch.as_tensor(o.meta, device=dev), order, L=L)
+           for o in sp.operands]
+    out_shape = tuple(s - 2 * r for s in x.shape)
+    acc = torch.zeros(out_shape, dtype=x.dtype, device=dev)
+    for op in plan.decompose.ops:
+        sl, axis = _op_slice(plan.decompose.mode, op, out_shape, r, d)
+        acc = acc + _apply_op(fns[op.operand], x[sl], out_shape[axis], axis)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -28,17 +28,11 @@ from repro_torch.serving import BatchPolicy, GenerateDriver
 
 
 def _request_stream(cfg, n_requests, prompt_len, seed=1):
-    """Per-request prompts (and memories for vlm/encdec), like a front end."""
+    """Per-request prompts, like a front end."""
     rng = np.random.default_rng(seed)
     for _ in range(n_requests):
-        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len),
-                                 dtype=torch.int32)
-        mem = None
-        if cfg.family in ("vlm", "encdec"):
-            rows = cfg.n_img_tokens if cfg.family == "vlm" else cfg.n_frames
-            mem = torch.as_tensor(rng.normal(size=(rows, cfg.d_model)),
-                                  dtype=torch.float32)
-        yield prompt, mem
+        yield torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len),
+                              dtype=torch.int32)
 
 
 def main(argv=None):
@@ -75,9 +69,9 @@ def main(argv=None):
     driver = GenerateDriver(params, cfg, cache_len=cache_len, policy=policy,
                             greedy=args.greedy, autostart=False)
     t0 = time.monotonic()
-    futures = [driver.submit(prompt, args.new_tokens, memory=mem)
-               for prompt, mem in _request_stream(cfg, n_requests,
-                                                  args.prompt_len)]
+    futures = [driver.submit(prompt, args.new_tokens)
+               for prompt in _request_stream(cfg, n_requests,
+                                             args.prompt_len)]
     driver.start()
     results = [f.result() for f in futures]
     dt = time.monotonic() - t0

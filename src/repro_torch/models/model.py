@@ -11,7 +11,7 @@ families wait in ROADMAP.md (Queue 1 item 10) and raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Union
 
 import torch
 import torch.nn.functional as F
@@ -99,7 +99,7 @@ def unembed(p, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
-            memory: Optional[Tensor] = None, collect_kv: bool = False):
+            collect_kv: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux, kv).
 
     ``kv`` is ``{"states": {"ssm": (L,B,h,p,n), "conv": (L,B,K-1,ch)}}``

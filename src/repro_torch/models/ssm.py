@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.conv1d.ops import conv1d_causal
 from repro_torch.kernels.conv1d.ref import conv1d_causal_ref
 from repro_torch.models.nn import ParamBuilder
@@ -155,7 +156,10 @@ def apply_mamba(p, x: Tensor, cfg: ModelConfig, return_state: bool = False):
 
 def mamba_init_state(cfg: ModelConfig, batch: int,
                      dtype: torch.dtype = torch.float32,
-                     device: torch.device | str = "cpu"):
+                     device: Device = None):
+    """An empty decode state of one layer on ``device`` (``None``: the
+    card, raising without one)."""
+    device = resolve_device(device)
     h, hd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     return {
         "ssm": torch.zeros((batch, h, hd, n), dtype=torch.float32,

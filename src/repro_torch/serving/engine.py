@@ -44,12 +44,10 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     return logits, {**cache, **new, "pos": cache["pos"] + 1}
 
 
-def prefill(params, cfg: ModelConfig, tokens: Tensor, cache_len: int,
-            memory: Optional[Tensor] = None):
+def prefill(params, cfg: ModelConfig, tokens: Tensor, cache_len: int):
     """tokens (B, S) -> (logits (B, S, V), cache ready for decode at pos=S)."""
     s = tokens.shape[1]
-    logits, _, kv = M.forward(params, cfg, tokens, memory=memory,
-                              collect_kv=True)
+    logits, _, kv = M.forward(params, cfg, tokens, collect_kv=True)
     # the layout of C.init_cache, filled from the forward's final states
     cc = {"pos": torch.full((), s, dtype=torch.int32, device=tokens.device),
           "ssm": kv["states"]["ssm"],
@@ -67,8 +65,7 @@ def _next_token(logits: Tensor, greedy: bool,
 
 
 def generate(params, cfg: ModelConfig, prompt: Tensor, n_new: int,
-             cache_len: int, memory: Optional[Tensor] = None,
-             greedy: bool = True,
+             cache_len: int, greedy: bool = True,
              generator: Optional[torch.Generator] = None):
     """Autoregressive generation: prefill + ``n_new`` greedy/sampled steps.
 
@@ -79,7 +76,7 @@ def generate(params, cfg: ModelConfig, prompt: Tensor, n_new: int,
     """
     if not greedy and generator is None:
         generator = torch.Generator(device=prompt.device).manual_seed(0)
-    logits, cc = prefill(params, cfg, prompt, cache_len, memory=memory)
+    logits, cc = prefill(params, cfg, prompt, cache_len)
     tok = _next_token(logits[:, -1], greedy, generator)
     out = [tok]
     for _ in range(n_new):

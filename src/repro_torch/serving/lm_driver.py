@@ -2,9 +2,8 @@
 
 The counterpart of ``repro/serving/lm_driver.py``.  Decode batches must be
 *position-aligned* (one scalar ``pos`` per cache — see
-``serving/engine.py``), so the batchable unit is ``(prompt_len, n_new,
-memory signature)``: requests with the same signature stack into one
-``generate`` call (prefill + decode steps) and stream back per-request
+``serving/engine.py``), so the batchable unit is ``(prompt_len, n_new)``:
+requests with the same signature stack into one ``generate`` call (prefill + decode steps) and stream back per-request
 token tensors.  It reports the same metrics as the reference driver.
 
     driver = GenerateDriver(params, cfg, cache_len=64)
@@ -27,11 +26,10 @@ from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
 
 
 class _GenJob:
-    __slots__ = ("prompt", "memory", "t_submit")
+    __slots__ = ("prompt", "t_submit")
 
-    def __init__(self, prompt, memory):
+    def __init__(self, prompt):
         self.prompt = prompt
-        self.memory = memory
         self.t_submit = time.monotonic()
 
 
@@ -60,24 +58,19 @@ class GenerateDriver:
                                      autostart=autostart)
 
     # -- admission -----------------------------------------------------------
-    def group_key(self, prompt, n_new: int, memory=None) -> str:
-        mem = ("none" if memory is None
-               else "x".join(str(s) for s in memory.shape))
-        return f"len={prompt.shape[0]};new={n_new};mem={mem}"
+    def group_key(self, prompt, n_new: int) -> str:
+        return f"len={prompt.shape[0]};new={n_new}"
 
-    def submit(self, prompt, n_new: int, memory=None) -> Future:
+    def submit(self, prompt, n_new: int) -> Future:
         """Enqueue one request. ``prompt`` is (S,) int; result (n_new,)."""
         prompt = torch.as_tensor(prompt)
         if prompt.dim() != 1:
             raise ValueError(
                 f"prompt must be a 1-D token array, got {tuple(prompt.shape)}")
-        needs_mem = self.cfg.family in ("vlm", "encdec")
-        if needs_mem and memory is None:
-            raise ValueError(f"family {self.cfg.family!r} requires a memory")
-        key = (self.group_key(prompt, n_new, memory), n_new)
+        key = (self.group_key(prompt, n_new), n_new)
         m = self.metrics_registry.group(key[0])
         try:
-            fut = self._sched.submit(key, _GenJob(prompt, memory))
+            fut = self._sched.submit(key, _GenJob(prompt))
         except QueueFullError:
             m.bump(rejected=1)
             raise
@@ -131,12 +124,8 @@ class GenerateDriver:
         try:
             prompts = torch.stack([j.prompt for j in jobs]).to(
                 device=self.device, dtype=torch.int32)
-            memory = (torch.stack([torch.as_tensor(j.memory) for j in jobs])
-                      .to(self.device)
-                      if jobs[0].memory is not None else None)
             toks, _ = E.generate(self.params, self.cfg, prompts, n_new,
-                                 cache_len, memory=memory,
-                                 greedy=self.greedy,
+                                 cache_len, greedy=self.greedy,
                                  generator=self.generator)
             if toks.device.type == "cuda":
                 torch.cuda.synchronize(toks.device)

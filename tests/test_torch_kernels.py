@@ -208,20 +208,43 @@ def test_sptc_spmm_windows_v1_matches_pallas(t, dtype):
 def test_sptc_spmm_v1_applies_the_stencil():
     """Swapped windows through the compressed operand give the 1-D stencil,
     as the paper's pipeline composes them (pre-swapped RHS, §3.3)."""
-    from repro_torch.core.engine import _windows
+    from repro_torch.core.engine import tile_windows
     w = np.random.default_rng(5).normal(size=5)
     sk = sparsify.sparsify_stencil_kernel(w)
     n_out = 4 * sk.L + 3
     x = torch.as_tensor(np.random.default_rng(1).normal(
         size=(n_out + 4, 6)).astype(np.float32))
-    win, ntiles = _windows(x, n_out, sk.L,
-                           order=torch.as_tensor(sk.perm, dtype=torch.int64))
+    win, ntiles = tile_windows(
+        x, n_out, sk.L, order=torch.as_tensor(sk.perm, dtype=torch.int64))
     y = sptc_ops.sptc_spmm_windows(
         torch.as_tensor(sk.values, dtype=torch.float32),
         torch.as_tensor(sk.meta), win.contiguous())
     got = y.reshape(ntiles * sk.L, -1)[:n_out]
     np.testing.assert_allclose(_np(got), _direct_1d(w, x.numpy(), n_out),
                                **F32_TOL)
+
+
+@pytest.mark.parametrize("shape,ndim,r", [("box", 1, 2), ("star", 2, 1),
+                                          ("box", 2, 1), ("box", 2, 3),
+                                          ("star", 3, 1)])
+def test_apply_sptc_v1_matches_reference_sptc(shape, ndim, r):
+    """The v1 entry (plain version on the CPU) applies the whole stencil as
+    the reference's simulated-SpTC backend does."""
+    import jax.numpy as jnp
+    from repro.core.engine import apply_stencil as ref_apply
+    from repro.core.stencil import make_stencil as ref_make
+    from repro_torch.core.engine import apply_sptc_v1
+    spec = make_stencil(shape, ndim, r, seed=4 * ndim + r)
+    dims = {1: (53,), 2: (19, 27), 3: (7, 9, 11)}[ndim]
+    x = np.random.default_rng(r).normal(
+        size=tuple(s + 2 * r for s in dims)).astype(np.float32)
+    want = ref_apply(ref_make(shape, ndim, r, seed=4 * ndim + r),
+                     jnp.asarray(x), backend="sptc")
+    before = sptc_ops.sptc_spmm_windows.launches
+    got = apply_sptc_v1(spec, torch.as_tensor(x))
+    assert sptc_ops.sptc_spmm_windows.launches == before      # CPU: plain
+    assert tuple(got.shape) == dims
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
 
 
 def test_sptc_spmm_v1_wrapper_checks():
@@ -508,3 +531,19 @@ def test_cuda_sptc_spmm_v1_matches_plain(cuda_device, m, n, dtype):
     torch.cuda.synchronize()
     _close(got, want, dt)
     _close(one, want[3], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ndim,r", [("box", 1, 2), ("box", 2, 1),
+                                          ("star", 2, 3)])
+def test_cuda_apply_sptc_v1_matches_direct(cuda_device, shape, ndim, r):
+    from repro_torch.core.engine import apply_sptc_v1
+    spec = make_stencil(shape, ndim, r, seed=6)
+    dims = {1: (5003,), 2: (301, 203)}[ndim]
+    x = torch.randn(tuple(s + 2 * r for s in dims), device=cuda_device)
+    before = sptc_ops.sptc_spmm_windows.launches
+    got = apply_sptc_v1(spec, x)
+    assert sptc_ops.sptc_spmm_windows.launches > before
+    want = StencilEngine(spec, "direct")(x)
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)

@@ -159,6 +159,8 @@ def test_entry_points_need_a_card_without_device(monkeypatch):
         M.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mamba_init_state(cfg, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +189,7 @@ def test_prefill_cache_matches(pair):
     pl, pc = E.prefill(params, cfg, torch.as_tensor(toks), 32)
     assert int(pc["pos"]) == int(rc["pos"]) == 21
     empty = init_cache(cfg, 3, 32, device="cpu")
-    per_layer = mamba_init_state(cfg, 3, dtype=cfg.torch_dtype)
+    per_layer = mamba_init_state(cfg, 3, dtype=cfg.torch_dtype, device="cpu")
     for k in ("ssm", "conv"):
         assert tuple(pc[k].shape) == rc[k].shape == tuple(empty[k].shape), k
         assert empty[k].shape[1:] == per_layer[k].shape
@@ -340,23 +342,33 @@ def test_serve_launcher_runs_on_cpu():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.25)])
-def test_cuda_prefill_with_kernel_matches_plain(dtype, tol):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_prefill_with_kernel_matches_plain(dtype, monkeypatch):
     """Smoke config on the card: one conv1d launch per layer per prefill,
-    logits within ``tol`` of the plain model (bf16: the plain conv rounds
-    after every tap, the kernel once)."""
+    logits within 1e-4 of the same model whose conv is the kernel's plain
+    version (f32 sums in the same tap order, one rounding; only the f32
+    products round differently under fused multiply-adds, bf16 products
+    are exact), and a planted fault (taps shifted by one) outside it."""
+    tol = 1e-4
     if not torch.cuda.is_available() or \
             torch.cuda.get_device_capability(0) < (9, 0):
         pytest.skip("needs a CUDA device of compute capability 9.0")
+    from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
+    from repro_torch.models import ssm
     cfg = get_config(ARCH, smoke=True).scaled(dtype=dtype, use_kernels=True)
     params = M.init_params(cfg, 0)
     toks = torch.as_tensor(_tokens(cfg, 3, 41, seed=10), device="cuda")
     before = conv_ops.conv1d_causal.launches
     on, cc = E.prefill(params, cfg, toks, 64)
     assert conv_ops.conv1d_causal.launches == before + cfg.n_layers
-    off, _, _ = M.forward(params, cfg.scaled(use_kernels=False), toks)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(_np(on.cpu()), _np(off.cpu()), rtol=tol,
-                               atol=tol)
     toks_out, _ = E.generate(params, cfg, toks, 4, 64)
     assert tuple(toks_out.shape) == (3, 4)
+    monkeypatch.setattr(ssm, "conv1d_causal", conv1d_causal_plain)
+    plain, _, _ = M.forward(params, cfg, toks)
+    monkeypatch.setattr(ssm, "conv1d_causal", lambda x, w: conv1d_causal_plain(
+        x, torch.roll(w, 1, dims=0)))
+    fault, _, _ = M.forward(params, cfg, toks)
+    torch.cuda.synchronize()
+    on, plain, fault = _np(on.cpu()), _np(plain.cpu()), _np(fault.cpu())
+    np.testing.assert_allclose(on, plain, rtol=tol, atol=tol)
+    assert not np.allclose(fault, plain, rtol=tol, atol=tol)
