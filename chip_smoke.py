@@ -29,7 +29,9 @@ nothing of JAX or of the JAX reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -123,6 +125,36 @@ def _bound_ms(bytes_moved: float, flops: float):
     t_mem = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
+
+
+def _sass_sparse_mma(lib_path: Path) -> dict:
+    """Sparse tensor-core instructions (``HMMA.SP``) in the SASS of every
+    ``sptc_mma_kernel`` instantiation of the built library, from the CUDA
+    toolkit's ``cuobjdump``.  Raises when there is none."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found: dict = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+        elif func and "sptc_mma_kernel" in func and "HMMA" in line \
+                and ".SP" in line:
+            instr = line.split("*/", 1)[-1].strip().rstrip(" ;")
+            found.setdefault(func, []).append(instr)
+    kernels = [f for f in set(re.findall(r"Function : (\S+)", sass))
+               if "sptc_mma_kernel" in f]
+    if not kernels or set(kernels) - set(found):
+        raise AssertionError(f"no sparse HMMA in the SASS of "
+                             f"{sorted(set(kernels) - set(found)) or 'any'} "
+                             f"sptc_mma_kernel ({len(kernels)} found)")
+    mnemonics = sorted({i.split()[0] for lst in found.values() for i in lst})
+    return {"kernels": len(kernels),
+            "instructions": sum(len(v) for v in found.values()),
+            "mnemonics": mnemonics,
+            "example": next(iter(found.values()))[0]}
 
 
 def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
@@ -387,7 +419,8 @@ def main() -> int:
                                          tile_windows)
     from repro_torch.core.sparsify import sparsify_stencil_kernel
     from repro_torch.core.sptc import sptc_matmul_dense_equiv
-    from repro_torch.core.stencil import paper_suite
+    from repro_torch.core.stencil import make_stencil, paper_suite
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import build
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
@@ -428,33 +461,66 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or line.startswith("["):
             print("  ptxas", line.strip())
+    sass = _sass_sparse_mma(build.library_path())
+    results["sass"] = sass
+    print(f"phase 1 SASS: {sass['instructions']} sparse HMMA instructions in "
+          f"the {sass['kernels']} sptc_mma_kernel instantiations "
+          f"({', '.join(sass['mnemonics'])}); e.g. {sass['example']}")
 
     # -- phase 2: every kernel against its plain version on the card --------
     rng = np.random.default_rng(0)
     worst = {"sptc": 0.0, "gemm": 0.0, "direct": 0.0, "spmm": 0.0,
              "conv1d": 0.0}
     cases = {"sptc": 0, "gemm": 0, "direct": 0, "spmm": 0, "conv1d": 0}
-    for r in (1, 2, 3):
-        sk = sparsify_stencil_kernel(rng.normal(size=2 * r + 1))
-        L = sk.L
-        n_out = 5 * L + 3
-        for c in (1, 37, 300):
-            for star in (True, False):
-                for dt, comp in ((f32, None), (f32, torch.bfloat16),
-                                 (torch.bfloat16, None)):
-                    op = sptc_ops.fused_operand(sk.sparse, sk.perm, L,
-                                                star_fast=star, dtype=dt,
-                                                device=dev)
-                    big = randn(n_out + 2 * r, c + 5, dtype=dt, seed=c + r)
-                    x2d = big[:, 2:2 + c]            # row stride != C
-                    got = sptc_ops.sptc_spmm_fused(op, x2d, n_out=n_out,
-                                                   compute_dtype=comp)
-                    want = sptc_fused_ref(op.values, op.meta_words, x2d,
-                                          n_out=n_out, L=L, star_fast=star,
-                                          compute_dtype=comp)
-                    tol = TOL if dt == f32 else TOL_BF16
-                    worst["sptc"] = max(worst["sptc"], _err(got, want, tol))
-                    cases["sptc"] += 1
+    dtypes = ((f32, None), (f32, torch.bfloat16), (torch.bfloat16, None))
+    sptc_cases = [(r, L, c, star, n_out)
+                  for r in (1, 2, 3) for L in (2 * r + 2, 16)
+                  for c in (1, 37, 300) for star in (True, False)
+                  for n_out in (5 * L + 3,)]
+    sptc_cases += [(2, 20, c, False, 203) for c in (1, 37, 300)]
+    sptc_cases += [(r, 2 * r + 2, 1, True, 100_003) for r in (1, 2, 3)]
+    for r, L, c, star, n_out in sptc_cases:
+        sk = sparsify_stencil_kernel(rng.normal(size=2 * r + 1), L=L)
+        for dt, comp in dtypes:
+            op = sptc_ops.fused_operand(sk.sparse, sk.perm, L,
+                                        star_fast=star, dtype=dt, device=dev)
+            # c = 300: odd row stride (305), rows 4-byte aligned; c = 37:
+            # row stride 48, rows 16-byte aligned (vector staging); c = 1:
+            # the 1-D variant, row stride 6
+            big = randn(n_out + 2 * r, c + 5 + (6 if c == 37 else 0),
+                        dtype=dt, seed=c + r)
+            x2d = big[:, 2:2 + c] if c != 37 else big[:, 8:8 + c]
+            got = sptc_ops.sptc_spmm_fused(op, x2d, n_out=n_out,
+                                           compute_dtype=comp)
+            want = sptc_fused_ref(op.values, op.meta_words, x2d,
+                                  n_out=n_out, L=L, star_fast=star,
+                                  compute_dtype=comp)
+            # f32 storage with bf16 compute: bf16 operands, float32 sums
+            # and output, so the float32 limit
+            tol = TOL if dt == f32 else TOL_BF16
+            worst["sptc"] = max(worst["sptc"], _err(got, want, tol))
+            cases["sptc"] += 1
+    # planted fault: the pair index of one non-zero flipped in the TF32
+    # metadata table; the same check must fail
+    sk = sparsify_stencil_kernel(rng.normal(size=3))
+    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, star_fast=False,
+                                dtype=f32, device=dev)
+    a = op.tf32.a.cpu()
+    ks, t = [int(i) for i in torch.nonzero(a[0, :, 0, :4])[0]]
+    e = op.tf32.e.clone()
+    e[0, ks, :4] ^= 0xA << (4 * t)               # 0b0100 <-> 0b1110
+    bad = dataclasses.replace(op, tf32=dataclasses.replace(op.tf32, e=e))
+    x2d = randn(5 * sk.L + 5, 37, seed=99)
+    want = sptc_fused_ref(op.values, op.meta_words, x2d, n_out=5 * sk.L + 3,
+                          L=sk.L, star_fast=False)
+    fault = _rel(sptc_ops.sptc_spmm_fused(bad, x2d, n_out=5 * sk.L + 3),
+                 want)
+    print(f"phase 2 sptc planted fault (pair index of row 0, k-step {ks}, "
+          f"pair {t} flipped in the TF32 metadata): max rel err {fault:.3g} "
+          f"(tol {TOL})")
+    if not fault > TOL:
+        raise AssertionError("a flipped metadata field passes the sptc check")
+    results["sptc_planted_fault_rel_err"] = fault
     for L in (4, 6, 8, 16):
         for c in (1, 37, 300):
             for dt in (f32, torch.bfloat16):
@@ -470,16 +536,25 @@ def main() -> int:
         taps = direct_ops.stencil_taps(spec.weights, dev)
         for dt in (f32, torch.bfloat16):
             tol = TOL if dt == f32 else TOL_BF16
-            if spec.ndim == 1:
-                x = randn(1000 + 2 * r, dtype=dt, seed=r)
-                got = direct_ops.stencil1d(taps, x)
-                want = stencil2d_ref(taps.host, x[None], 0, r)[0]
-            else:
-                x = randn(3, 37 + 2 * r, 300 + 2 * r, dtype=dt, seed=r)
-                got = direct_ops.stencil2d(taps, x)
-                want = stencil2d_ref(taps.host, x, r, r)
-            worst["direct"] = max(worst["direct"], _err(got, want, tol))
-            cases["direct"] += 1
+            for off in (0, 3):             # contiguous; rows at odd offset
+                if spec.ndim == 1:         # H = 1: the flat tile
+                    x = randn(1001 + 2 * r + off, dtype=dt, seed=r)[off:]
+                    got = direct_ops.stencil1d(taps, x)
+                    want = stencil2d_ref(taps.host, x[None], 0, r)[0]
+                else:                      # batched, odd H and W
+                    x = randn(3, 37 + 2 * r, 301 + 2 * r + off, dtype=dt,
+                              seed=r)[:, :, off:]
+                    got = direct_ops.stencil2d(taps, x)
+                    want = stencil2d_ref(taps.host, x, r, r)
+                worst["direct"] = max(worst["direct"], _err(got, want, tol))
+                cases["direct"] += 1
+    for shape, r in (("box", 1), ("star", 2), ("box", 3)):  # 3-D: slabs
+        spec3 = make_stencil(shape, 3, r, seed=r)
+        x = randn(21 + 2 * r, 33 + 2 * r, 45 + 2 * r, seed=r)
+        got = dispatch.build(spec3, "cuda_direct", 2 * r + 2, dev)(x)
+        want = StencilEngine(spec3, "direct", device=dev)(x)
+        worst["direct"] = max(worst["direct"], _err(got, want, TOL))
+        cases["direct"] += 1
     for m in (8, 16):                    # v1 SpMM: (m, m) operand, K = 2m
         sk = sparsify_stencil_kernel(rng.normal(size=m - 1), L=m)
         for n in (1, 37, 1000):

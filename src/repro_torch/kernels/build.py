@@ -45,9 +45,9 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 #: are void pointers
 SIGNATURES: Dict[str, List[type]] = {
     "spider_sptc_fused": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                          _I64, _I, _I, _I, _P],
+                          _I, _I, _P],
     "spider_windows_gemm": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
-    "spider_stencil2d": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+    "spider_stencil2d": [_P, _P, _P, _I64, _I64, _I, _I64, _I64, _I64, _I64,
                          _I64, _I, _P],
     "spider_sptc_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                          _I, _P],

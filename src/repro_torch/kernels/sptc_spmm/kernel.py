@@ -7,24 +7,32 @@ and allocate the outputs; this module only launches.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, check, library, stream_ptr
 
+if TYPE_CHECKING:
+    from repro_torch.kernels.sptc_spmm.fragments import Fragments
+
 
 def sptc_fused_launch(x2d: torch.Tensor, y: torch.Tensor,
-                      values: torch.Tensor, meta_words: torch.Tensor, *,
-                      n_out: int, L: int, star_fast: bool,
-                      bf16_compute: bool) -> None:
-    """Launch on the current stream; returns without synchronising."""
+                      frags: "Fragments", *, n_out: int, L: int,
+                      tf32: bool) -> None:
+    """Launch on the current stream; returns without synchronising.
+
+    ``tf32``: float32 storage through ``mma.sp...tf32`` (3xTF32) with
+    ``frags`` the operand's TF32 tables; otherwise bfloat16 storage or
+    compute through ``mma.sp...bf16`` with its BF16 tables.
+    """
     lib = library()
     with torch.cuda.device(x2d.device):
         status = lib.spider_sptc_fused(
-            x2d.data_ptr(), y.data_ptr(), values.data_ptr(),
-            meta_words.data_ptr(), x2d.shape[0], x2d.shape[1], x2d.stride(0),
-            n_out, L, values.shape[1], meta_words.shape[1], int(star_fast),
-            int(bf16_compute), DTYPE_CODES[x2d.dtype],
-            stream_ptr(x2d.device))
+            x2d.data_ptr(), y.data_ptr(), frags.a.data_ptr(),
+            frags.e.data_ptr(), x2d.shape[0], x2d.shape[1], x2d.stride(0),
+            n_out, L, frags.ksteps, 0 if tf32 else 1,
+            DTYPE_CODES[x2d.dtype], stream_ptr(x2d.device))
     check(status, "spider_sptc_fused")
 
 

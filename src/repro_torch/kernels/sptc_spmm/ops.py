@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
+from repro_torch.kernels.sptc_spmm import fragments as fr
 from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
                                                   sptc_spmm_launch)
 from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
@@ -31,14 +32,21 @@ class FusedOperand:
     """Device tables of one compressed operand (L = K/2 = ``values.shape[0]``).
 
     ``values``     (L, K/2) in the input dtype — the banded layout of
-                   ``contiguous_band_values`` when ``star_fast``.
+                   ``contiguous_band_values`` when ``star_fast``; the plain
+                   version reads it and ``meta_words``.
     ``meta_words`` (L, ceil(K/32)) int32 view of the packed uint32
                    ``Sparse24.meta_bits()`` words.
+    ``tf32``       the kernel's per-lane ``mma.sp`` tables for float32
+                   storage (pair-aligned 1:2 operand, 3xTF32); None for a
+                   bfloat16 operand.
+    ``bf16``       its tables for bfloat16 storage or compute (2:4 operand).
     """
 
     values: torch.Tensor
     meta_words: torch.Tensor
     star_fast: bool
+    tf32: Optional[fr.Fragments]
+    bf16: fr.Fragments
 
 
 def fused_operand(operand: "Sparse24", perm, L: int, *,
@@ -69,10 +77,23 @@ def fused_operand(operand: "Sparse24", perm, L: int, *,
     vals = fast if fast is not None else operand.values
     words = np.ascontiguousarray(operand.meta_bits()).view(np.int32)
     device = resolve_device(device)
+    # the kernel's tables, from the compressed (not banded) layout: the
+    # same swapped matrix, so star and box operands take one kernel
+    comp = torch.as_tensor(np.asarray(operand.values), dtype=dtype)
+    a16, e16 = fr.bf16_tables(comp, operand.meta)
+    tf32 = None
+    if dtype == torch.float32:
+        a32, e32 = fr.tf32_tables(fr.swapped_dense(operand))
+        tf32 = fr.Fragments(a=torch.as_tensor(a32, device=device),
+                            e=torch.as_tensor(e32, device=device),
+                            k_step=fr.TF32_K)
     return FusedOperand(
         values=torch.as_tensor(np.asarray(vals), dtype=dtype, device=device),
         meta_words=torch.as_tensor(words, device=device),
-        star_fast=fast is not None)
+        star_fast=fast is not None, tf32=tf32,
+        bf16=fr.Fragments(a=torch.as_tensor(a16, device=device),
+                          e=torch.as_tensor(e16, device=device),
+                          k_step=fr.BF16_K))
 
 
 def _check(op: FusedOperand, x2d: torch.Tensor, n_out: int,
@@ -92,9 +113,9 @@ def _check(op: FusedOperand, x2d: torch.Tensor, n_out: int,
     if L != kh or op.meta_words.shape != (L, -(-kh // 16)) \
             or op.meta_words.dtype != torch.int32:
         raise ValueError("operand tables do not match L / K/2")
-    if L * kh * 8 > SMEM_LIMIT:
-        raise ValueError(f"L={L} needs more than {SMEM_LIMIT} bytes of "
-                         "shared memory per block")
+    if L > fr.MAX_L:
+        raise ValueError(f"L={L} exceeds {fr.MAX_L}: the kernel keeps the "
+                         "operand's fragments in registers")
     if n_out < 0:
         raise ValueError(f"n_out must be >= 0, got {n_out}")
     if compute_dtype not in (None, torch.bfloat16):
@@ -123,9 +144,10 @@ def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
     y = torch.empty((n_out, x2d.shape[1]), dtype=x2d.dtype, device=x2d.device)
     if y.numel() == 0:
         return y
-    sptc_fused_launch(x2d, y, op.values, op.meta_words, n_out=n_out, L=L,
-                      star_fast=op.star_fast,
-                      bf16_compute=compute_dtype is not None)
+    # a float32 operand (checked above: the input's dtype) has both routes
+    tf32 = x2d.dtype == torch.float32 and compute_dtype is None
+    sptc_fused_launch(x2d, y, op.tf32 if tf32 else op.bf16, n_out=n_out, L=L,
+                      tf32=tf32)
     sptc_spmm_fused.launches += 1
     return y
 

@@ -11,14 +11,17 @@ import torch
 from repro_torch.kernels.build import DTYPE_CODES, check, library, stream_ptr
 
 
-def stencil2d_launch(x: torch.Tensor, y: torch.Tensor, tap_u: torch.Tensor,
-                     tap_v: torch.Tensor, tap_w: torch.Tensor) -> None:
-    """x (B, H+2rh, W+2rw), y (B, H, W); launches without synchronising."""
+def stencil2d_launch(x: torch.Tensor, y: torch.Tensor, weights: torch.Tensor,
+                     star: bool) -> None:
+    """x (B, H+2rh, W+2rw), y (B, H, W); ``weights`` the (2rh+1, 2rw+1)
+    float32 taps on the CPU, passed by value.  Launches without
+    synchronising."""
     b, h, w = y.shape
+    kh, kw = weights.shape
     lib = library()
     with torch.cuda.device(x.device):
         status = lib.spider_stencil2d(
-            x.data_ptr(), y.data_ptr(), tap_u.data_ptr(), tap_v.data_ptr(),
-            tap_w.data_ptr(), tap_w.shape[0], b, h, w, x.stride(0),
+            x.data_ptr(), y.data_ptr(), weights.contiguous().data_ptr(),
+            (kh - 1) // 2, (kw - 1) // 2, int(star), b, h, w, x.stride(0),
             x.stride(1), DTYPE_CODES[x.dtype], stream_ptr(x.device))
     check(status, "spider_stencil2d")

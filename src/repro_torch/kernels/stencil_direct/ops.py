@@ -14,30 +14,36 @@ import numpy as np
 import torch
 
 from repro_torch.device import Device, resolve_device
-from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
+from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.stencil_direct.kernel import stencil2d_launch
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
 
 
+#: largest radius per axis the CUDA kernel is instantiated for (7 x 7 taps)
+MAX_RADIUS = 3
+
+
 @dataclasses.dataclass(frozen=True)
 class Taps:
-    """Non-zero taps of a (2rh+1, 2rw+1) weight array.
+    """Taps of a (2rh+1, 2rw+1) weight array, for ``device``.
 
-    ``host`` holds the ``(u, v, weight)`` triples (star zeros pruned);
-    ``u``/``v`` (int32) and ``w`` (float32) are the same on the device.
+    ``host`` holds the non-zero ``(u, v, weight)`` triples (what the plain
+    version sums); ``weights`` is the (2rh+1, 2rw+1) float32 array on the
+    CPU that the kernel takes by value; ``star`` says every non-zero tap
+    lies on the centre row or column, so the kernel skips the others.
     """
 
     host: Tuple[Tuple[int, int, float], ...]
-    u: torch.Tensor
-    v: torch.Tensor
-    w: torch.Tensor
+    weights: torch.Tensor
+    star: bool
     rh: int
     rw: int
+    device: torch.device
 
 
 def stencil_taps(weights: np.ndarray, device: Device = None) -> Taps:
-    """Tap buffers of a 2-D weight array (a 1-D array is one row), on
-    ``device`` (``None``: the card, raising without one)."""
+    """Taps of a 2-D weight array (a 1-D array is one row), for ``device``
+    (``None``: the card, raising without one)."""
     device = resolve_device(device)
     weights = np.asarray(weights)
     if weights.ndim == 1:
@@ -45,17 +51,13 @@ def stencil_taps(weights: np.ndarray, device: Device = None) -> Taps:
     kh, kw = weights.shape
     if kh % 2 != 1 or kw % 2 != 1:
         raise ValueError(f"weights must have odd extents, got {weights.shape}")
+    rh, rw = (kh - 1) // 2, (kw - 1) // 2
     host = tuple((u, v, float(np.float32(weights[u, v])))
                  for u in range(kh) for v in range(kw) if weights[u, v] != 0)
-    if len(host) * 12 > SMEM_LIMIT:
-        raise ValueError(f"{len(host)} taps exceed {SMEM_LIMIT} bytes of "
-                         "shared memory")
-    cols = list(zip(*host)) if host else [(), (), ()]
     return Taps(host=host,
-                u=torch.tensor(cols[0], dtype=torch.int32, device=device),
-                v=torch.tensor(cols[1], dtype=torch.int32, device=device),
-                w=torch.tensor(cols[2], dtype=torch.float32, device=device),
-                rh=(kh - 1) // 2, rw=(kw - 1) // 2)
+                weights=torch.tensor(weights, dtype=torch.float32),
+                star=all(u == rh or v == rw for u, v, _ in host),
+                rh=rh, rw=rw, device=device)
 
 
 def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +69,7 @@ def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be 2-D or batched 2-D, got {tuple(x.shape)}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"x dtype {x.dtype} not in {tuple(DTYPE_CODES)}")
-    if taps.w.device != x.device:
+    if taps.device != x.device:
         raise ValueError("taps and x lie on different devices")
     h = x.shape[-2] - 2 * taps.rh
     w = x.shape[-1] - 2 * taps.rw
@@ -79,12 +81,15 @@ def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
         return stencil2d_ref(taps.host, x, taps.rh, taps.rw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if max(taps.rh, taps.rw) > MAX_RADIUS:
+        raise ValueError(f"the direct kernel takes radii up to {MAX_RADIUS} "
+                         f"per axis, got ({taps.rh}, {taps.rw})")
     xb = x if x.dim() == 3 else x[None]
     y = torch.empty((xb.shape[0], h, w), dtype=x.dtype, device=x.device)
     if y.numel() == 0 or not taps.host:
         y.zero_()
     else:
-        stencil2d_launch(xb, y, taps.u, taps.v, taps.w)
+        stencil2d_launch(xb, y, taps.weights, taps.star)
         stencil2d.launches += 1
     return y if x.dim() == 3 else y[0]
 

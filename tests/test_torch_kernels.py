@@ -437,24 +437,35 @@ def _close(got, want, dtype):
                                atol=tol)
 
 
+def _fused_input(n_out, r, c, dt, device):
+    """(n_out + 2r, c) view with a row stride > c: odd (41) and 4-byte
+    aligned for c = 37, a multiple of 16 bytes and 16-byte aligned (the
+    kernel's vector staging) for c = 300; c = 1 is the 1-D (tile-walking)
+    variant."""
+    off = 8 if c == 300 else 1
+    big = torch.randn(n_out + 2 * r, c + off + 4, device=device).to(dt)
+    return big[:, off:off + c]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("L_kind", ["2r+2", "16"])
 @pytest.mark.parametrize("c", [1, 37, 300])
 @pytest.mark.parametrize("star_fast", [True, False])
 @pytest.mark.parametrize("dtype,compute", [("float32", None),
                                            ("float32", "bfloat16"),
                                            ("bfloat16", None)])
-def test_cuda_sptc_fused_matches_plain(cuda_device, r, c, star_fast, dtype,
-                                       compute):
+def test_cuda_sptc_fused_matches_plain(cuda_device, r, L_kind, c, star_fast,
+                                       dtype, compute):
     dt = getattr(torch, dtype)
     comp = None if compute is None else getattr(torch, compute)
+    L = 2 * r + 2 if L_kind == "2r+2" else 16
     sk = sparsify.sparsify_stencil_kernel(
-        np.random.default_rng(r).normal(size=2 * r + 1))
+        np.random.default_rng(r).normal(size=2 * r + 1), L=L)
     n_out = 5 * sk.L + 3
     op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, star_fast=star_fast,
                                 dtype=dt, device=cuda_device)
-    big = torch.randn(n_out + 2 * r, c + 4, device=cuda_device).to(dt)
-    x2d = big[:, 1:1 + c]                                  # row stride > C
+    x2d = _fused_input(n_out, r, c, dt, cuda_device)
     before = sptc_ops.sptc_spmm_fused.launches
     got = sptc_ops.sptc_spmm_fused(op, x2d, n_out=n_out, compute_dtype=comp)
     assert sptc_ops.sptc_spmm_fused.launches == before + 1
@@ -462,6 +473,60 @@ def test_cuda_sptc_fused_matches_plain(cuda_device, r, c, star_fast, dtype,
                           L=sk.L, star_fast=star_fast, compute_dtype=comp)
     torch.cuda.synchronize()
     _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,c,n_out", [(20, 37, 203), (20, 1, 1003),
+                                       (80, 37, 250), (80, 1, 4001),
+                                       (4, 1, 100_003), (16, 1, 100_003),
+                                       (6, 3000, 61)])
+@pytest.mark.parametrize("dtype,compute", [("float32", None),
+                                           ("float32", "bfloat16"),
+                                           ("bfloat16", None)])
+def test_cuda_sptc_fused_blocks_and_long_rows(cuda_device, L, c, n_out,
+                                              dtype, compute):
+    """L > 16 (several M blocks; L = 80 is the largest the kernel takes),
+    long one-column inputs over many blocks, many column blocks."""
+    dt = getattr(torch, dtype)
+    comp = None if compute is None else getattr(torch, compute)
+    r = min(2, (L - 2) // 2)                      # L >= 2r + 2
+    sk = sparsify.sparsify_stencil_kernel(
+        np.random.default_rng(L).normal(size=2 * r + 1), L=L)
+    op = sptc_ops.fused_operand(sk.sparse, sk.perm, L, star_fast=False,
+                                dtype=dt, device=cuda_device)
+    x2d = _fused_input(n_out, r, c, dt, cuda_device)
+    got = sptc_ops.sptc_spmm_fused(op, x2d, n_out=n_out, compute_dtype=comp)
+    want = sptc_fused_ref(op.values, op.meta_words, x2d, n_out=n_out, L=L,
+                          star_fast=False, compute_dtype=comp)
+    torch.cuda.synchronize()
+    _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("dtype,compute", [("float32", None),
+                                           ("float32", "bfloat16"),
+                                           ("bfloat16", None)])
+def test_cuda_sptc_fused_one_tile_layout(cuda_device, c, dtype, compute):
+    """One tile, one non-zero per row at a known window position: pins the
+    A-fragment, metadata and B-fragment layouts.  Small integers are exact
+    in every route, so the kernel must equal its plain version exactly."""
+    dt = getattr(torch, dtype)
+    comp = None if compute is None else getattr(torch, compute)
+    L = 16
+    dense = np.zeros((L, 2 * L))
+    for m in range(L):
+        dense[m, (5 * m + 3) % (2 * L)] = m + 1     # every pair, both halves
+    operand = sparsify.encode_24(dense)
+    op = sptc_ops.fused_operand(operand, sparsify.strided_swap_perm(L), L,
+                                star_fast=False, dtype=dt, device=cuda_device)
+    x2d = (torch.arange(2 * L * c, device=cuda_device) % 61).reshape(
+        2 * L, c).to(dt)
+    got = sptc_ops.sptc_spmm_fused(op, x2d, n_out=L, compute_dtype=comp)
+    want = sptc_fused_ref(op.values, op.meta_words, x2d, n_out=L, L=L,
+                          star_fast=False, compute_dtype=comp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
 
 
 @pytest.mark.cuda
@@ -479,22 +544,48 @@ def test_cuda_windows_gemm_matches_plain(cuda_device, L, c, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,ndim,r", [("box", 1, 1), ("box", 1, 2),
-                                          ("star", 2, 3), ("box", 2, 3)])
+                                          ("star", 2, 1), ("star", 2, 3),
+                                          ("box", 2, 2), ("box", 2, 3)])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_stencil2d_matches_plain(cuda_device, shape, ndim, r, dtype):
+def test_cuda_stencil2d_matches_plain(cuda_device, shape, ndim, r, layout,
+                                      dtype):
+    """1-D (H = 1, the flat tile), batched 2-D slabs with odd H and W that
+    fill no tile, and inputs whose rows start at an odd column offset."""
     dt = getattr(torch, dtype)
     spec = make_stencil(shape, ndim, r, seed=5)
     taps = direct_ops.stencil_taps(spec.weights, cuda_device)
+    off = 0 if layout == "contiguous" else 3
     if ndim == 1:
-        x = torch.randn(1000 + 2 * r, device=cuda_device).to(dt)
+        big = torch.randn(1000 + 2 * r + off, device=cuda_device).to(dt)
+        x = big[off:]
         got = direct_ops.stencil1d(taps, x)
         want = stencil2d_ref(taps.host, x[None], 0, r)[0]
     else:
-        x = torch.randn(3, 37 + 2 * r, 300 + 2 * r, device=cuda_device).to(dt)
+        big = torch.randn(3, 37 + 2 * r, 301 + 2 * r + off,
+                          device=cuda_device).to(dt)
+        x = big[:, :, off:]
         got = direct_ops.stencil2d(taps, x)
         want = stencil2d_ref(taps.host, x, r, r)
     torch.cuda.synchronize()
     _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh,kw", [(1, 5), (3, 7), (7, 1), (5, 3), (7, 7)])
+@pytest.mark.parametrize("h,w", [(1, 33), (67, 1500)])
+def test_cuda_stencil2d_uneven_extents(cuda_device, kh, kw, h, w):
+    """rh != rw, a single-row tap array on a many-row grid (the flat tile
+    over rows), zero taps inside a box, and 2-D slabs of one row."""
+    rng = np.random.default_rng(kh * 10 + kw)
+    weights = rng.normal(size=(kh, kw))
+    weights[rng.random(size=weights.shape) < 0.3] = 0.0
+    taps = direct_ops.stencil_taps(weights, cuda_device)
+    x = torch.randn(2, h + kh - 1, w + kw - 1, device=cuda_device)
+    got = direct_ops.stencil2d(taps, x)
+    want = stencil2d_ref(taps.host, x, taps.rh, taps.rw)
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
 
 
 @pytest.mark.cuda
