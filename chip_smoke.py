@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives three
+each kernel against its plain torch version on the card, and drives five
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -15,6 +15,15 @@ after:
 * the v1 compressed SpMM entry (``apply_sptc_v1``, one
   ``sptc_spmm_windows`` launch per row op) applying box-2d1r at
   10240 x 10240 from swapped windows, against ``direct``;
+* the tuner (``plan_for`` in time mode on a fresh ``PlanCache``, then
+  ``tuned_apply``) over the paper suite at the same size: every candidate
+  kernel timed, a ``cuda_*`` plan for each spec, the tuned output against
+  ``direct``, and the plans saved under ``build/`` and read back without a
+  tune;
+* stencil serving: ``StencilDriver`` fed by 8 client threads of 12 jobs each
+  (star-2d1r and box-2d2r grids of edge 1025-2048, box-1d1r lengths of
+  2-4 M points), every job against ``direct``, and each super-batch's
+  kernel launches held to its plan's row ops;
 * serving ``mamba2-2.7b`` at full width and depth (64 layers, bf16, random
   weights from a seed) through ``GenerateDriver``: 8 requests of 512-token
   prompts, 32 new tokens each, with the causal-conv1d kernel in every
@@ -43,8 +52,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_1D = 104_857_600                   # 1-D points, = 10240 * 10240
 N_2D = 10_240                        # 2-D grid edge (benchmarks/fig9_throughput.py)
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
-FP32_FLOP_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 TOL = 3e-5                           # f32: |got - want| <= TOL * (1 + |want|)
 TOL_BF16 = 1e-2                      # bf16 storage: one output rounding step
 #: the model cut to 2 layers, logits with the conv kernel against the same
@@ -122,9 +129,11 @@ def _err(got, want, tol: float) -> float:
 
 
 def _bound_ms(bytes_moved: float, flops: float):
-    t_mem = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
+    """The H100's least time for the work (``repro_torch.roofline``), float32
+    operations at the rate outside the tensor cores."""
+    from repro_torch.roofline import FP32_FLOPS, HBM_BW, kernel_roofline_time
+    by = "bytes" if bytes_moved / HBM_BW >= flops / FP32_FLOPS else "operations"
+    return kernel_roofline_time(flops, bytes_moved) * 1e3, by
 
 
 def _sass_sparse_mma(lib_path: Path) -> dict:
@@ -407,6 +416,345 @@ def _phase_lm(dev, smi: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _record_tunes(log: list):
+    """Append ``(spec, shape, TuneResult)`` of every tune the tuner runs."""
+    from repro_torch.tuner import api
+    kept = api.autotune
+
+    def recording(spec, shape, *args, **kwargs):
+        res = kept(spec, shape, *args, **kwargs)
+        log.append((spec, tuple(shape), res))
+        return res
+    api.autotune = recording
+    try:
+        yield
+    finally:
+        api.autotune = kept
+
+
+def _launches_per_call(eng) -> int:
+    """Kernel launches of one call of a one-step 1-D or 2-D engine, whatever
+    its batch: one per RowOp of a matrix kernel's plan, one of the direct
+    kernel."""
+    return 1 if eng.backend == "cuda_direct" else len(eng.plan_ir.decompose.ops)
+
+
+def _phase_tuned(dev, smi: str, randn, counters: dict, timing: dict) -> dict:
+    """The tuner's entry points over the paper suite at the paper's size:
+    every candidate timed, a ``cuda_*`` plan, the tuned output against
+    ``direct``, and the plans persisted and read back without a tune."""
+    import torch
+    from repro_torch.core.engine import StencilEngine
+    from repro_torch.core.stencil import paper_suite
+    from repro_torch.kernels.dispatch import CUDA_BACKENDS
+    from repro_torch.tuner import (PlanCache, autotune, plan_for, tuned_apply,
+                                   tuned_engine)
+    out: dict = {}
+    cache = PlanCache()
+    shapes = {}
+    for fn in counters.values():
+        fn.launches = 0
+    main = dict.fromkeys(counters, 0)    # the tuner's entry points' launches
+    t_phase = time.perf_counter()
+    for spec in paper_suite():
+        r = spec.radius
+        dims = (N_1D,) if spec.ndim == 1 else (N_2D, N_2D)
+        pts = float(np.prod(dims))
+        x = randn(*(s + 2 * r for s in dims), seed=29 * spec.ndim + r)
+        shapes[spec.name] = tuple(x.shape)
+        tunes: list = []
+        c0 = {b: fn.launches for b, fn in counters.items()}
+        t0 = time.perf_counter()
+        with _record_tunes(tunes):
+            plan = plan_for(spec, x.shape, x.dtype, device=dev, cache=cache,
+                            mode="time")
+        tune_s = time.perf_counter() - t0
+        (_, _, res), = tunes
+        cands = [{"plan": c.plan.describe(), "ms": None if c.score is None
+                  else c.score * 1e3, "error": c.error}
+                 for c in res.candidates]
+        for c in cands:
+            print(f"phase tuned {spec.name} candidate {c['plan']:<16} "
+                  + (f"{c['ms']:.3f} ms" if c["error"] is None else
+                     f"error {c['error']}") + f" | card {smi}")
+        bad = [c for c in cands if c["error"] is not None]
+        if bad or res.mode != "time":
+            raise AssertionError(f"{spec.name}: candidates failed: {bad}")
+        if plan.backend not in CUDA_BACKENDS:
+            raise AssertionError(f"{spec.name}: tuned plan {plan} is not a "
+                                 f"kernel")
+        got = tuned_apply(spec, x, cache=cache, mode="time")
+        torch.cuda.synchronize()
+        for b, fn in counters.items():
+            main[b] += fn.launches - c0[b]
+        want = StencilEngine(spec, "direct", device=dev)(x)
+        err = _err(got, want, TOL)
+        del got, want
+        eng = tuned_engine(spec, x.shape, x.dtype, device=dev, cache=cache,
+                           mode="time")
+        e_ms = _time_ms(lambda: eng(x), 10, hold=False)
+        fixed = {b: v["gstencil_s"]
+                 for b, v in timing[spec.name]["engine"].items()
+                 if b in CUDA_BACKENDS}
+        best_b = max(fixed, key=fixed.get)
+        cost_plan = autotune(spec, x.shape, x.dtype, device=dev,
+                             mode="cost").plan
+        out[spec.name] = {
+            "plan": plan.describe(), "cost_plan": cost_plan.describe(),
+            "candidates": cands, "tune_s": tune_s,
+            "max_abs_err_vs_direct": err, "ms": e_ms,
+            "gstencil_s": pts / e_ms / 1e6,
+            "fastest_fixed": best_b, "fastest_fixed_gstencil_s": fixed[best_b]}
+        print(f"phase tuned {spec.name} {'x'.join(map(str, dims))}: plan "
+              f"{plan.describe()} (tuned in {tune_s:.2f} s), max |err| vs "
+              f"direct {err:.3g} (tol {TOL}); tuned engine "
+              f"{pts / e_ms / 1e6:.2f} GStencil/s ({e_ms:.3f} ms), phase 4's "
+              f"fastest fixed backend {best_b} {fixed[best_b]:.2f} GStencil/s;"
+              f" cost mode would pick {cost_plan.describe()} | card {smi}")
+        del x, eng
+        torch.cuda.empty_cache()
+    out["launches"] = main
+    stats = cache.stats.as_dict()
+    # persistence: the plans saved under build/, read back by a fresh cache
+    path = cache.save(ROOT / "build" / "tuner_plans.json")
+    fresh = PlanCache(path=path)
+    for spec in paper_suite():
+        again = plan_for(spec, shapes[spec.name], torch.float32, device=dev,
+                         cache=fresh, mode="time")
+        if again.describe() != out[spec.name]["plan"]:
+            raise AssertionError(f"{spec.name}: persisted plan {again} != "
+                                 f"{out[spec.name]['plan']}")
+    fstats = fresh.stats.as_dict()
+    if fstats["tunes"] != 0 or fstats["plan_hit_rate"] != 1.0:
+        raise AssertionError(f"persisted cache retuned: {fstats}")
+    out.update({"stats": stats, "reloaded_stats": fstats,
+                "seconds": time.perf_counter() - t_phase})
+    print(f"phase tuned: {time.perf_counter() - t_phase:.1f} s, tuner stats "
+          f"{stats}; {len(fresh)} plans saved to {path.relative_to(ROOT)} and "
+          f"read back by a fresh PlanCache: tunes {fstats['tunes']}, "
+          f"plan_hit_rate {fstats['plan_hit_rate']}; kernel launches "
+          f"{out['launches']} | card {smi}")
+    return out
+
+
+SERVE_SPECS = (("star", 2, 1, 1), ("box", 2, 2, 2), ("box", 1, 1, 3))
+SERVE_CLIENTS, SERVE_JOBS = 8, 12
+SERVE_EDGE_2D = (1025, 2048)                 # halo-inclusive, one bucket
+SERVE_LEN_1D = (2_097_153, 4_194_304)
+
+
+def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
+    """Modest grids from many clients through ``StencilDriver``: eight
+    client threads of twelve jobs each, every job checked against
+    ``direct``, and the kernel launches of each super-batch counted."""
+    import threading
+
+    import torch
+    from repro_torch.core.engine import StencilEngine
+    from repro_torch.core.stencil import make_stencil
+    from repro_torch.kernels.dispatch import CUDA_BACKENDS
+    from repro_torch.serving import BatchPolicy, StencilDriver
+    from repro_torch.tuner import Plan, PlanCache
+
+    specs = [make_stencil(sh, nd, r, seed=sd) for sh, nd, r, sd in SERVE_SPECS]
+    cache = PlanCache()
+    driver = StencilDriver(cache=cache, padding="bucket", mode="time",
+                           policy=BatchPolicy(max_batch=16, max_wait_ms=5.0),
+                           device=dev)
+
+    def job_shape(rng, spec):
+        lo, hi = SERVE_EDGE_2D if spec.ndim == 2 else SERVE_LEN_1D
+        return tuple(int(v) for v in rng.integers(lo, hi + 1, size=spec.ndim))
+
+    for fn in counters.values():
+        fn.launches = 0
+    tunes: list = []
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    with _record_tunes(tunes):
+        warm = []
+        for i, spec in enumerate(specs):          # tunes and builds
+            gen.manual_seed(1000 + i)
+            shape = job_shape(np.random.default_rng(1000 + i), spec)
+            warm.append(driver.submit(spec, torch.randn(
+                shape, generator=gen, device=dev)))
+        for f in warm:
+            f.result(timeout=600)
+    warm_s = time.perf_counter() - t0
+    if len(tunes) != len(specs):
+        raise AssertionError(f"warm-up ran {len(tunes)} tunes")
+    plans = {spec.name: res.plan for spec, _, res in tunes}
+    engines = {spec.name: cache.engine(spec, plans[spec.name], device=dev)
+               for spec in specs}
+    before = {b: fn.launches for b, fn in counters.items()}
+    groups_before = {k: v["batches"]
+                     for k, v in driver.metrics()["plans"].items()}
+
+    def run_wave(seed: int):
+        """Every client thread makes and submits its jobs; all answered."""
+        jobs: list = [None] * (SERVE_CLIENTS * SERVE_JOBS)
+        errors: list = []
+
+        def client(c: int) -> None:
+            try:
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed + c)
+                rng = np.random.default_rng(seed + c)
+                for j in range(SERVE_JOBS):
+                    i = c * SERVE_JOBS + j
+                    spec = specs[i % len(specs)]
+                    x = torch.randn(job_shape(rng, spec), generator=g,
+                                    device=dev)
+                    jobs[i] = (spec, x, driver.submit(spec, x))
+            except BaseException as exc:          # reported after the join
+                errors.append(exc)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"client threads failed: {errors}")
+        results = [f.result(timeout=600) for _, _, f in jobs]
+        return jobs, results, time.perf_counter() - t0
+
+    jobs, results, wall = run_wave(0)
+    torch.cuda.synchronize()
+    after = {b: fn.launches for b, fn in counters.items()}
+    metrics = driver.metrics()
+    wave = {b: after[b] - before[b] for b in counters}
+    # the same traffic again under the profiler: the device's busy and idle
+    # shares of a wave, and the kernels' share of its device time
+    kern_names = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
+    prof = _profile(lambda: run_wave(100), "serve-stencil wave", smi, top=6)
+    rows_w = prof.pop("rows")
+    wave_prof = None
+    if prof["device_ms"]:
+        kern_w = sum(ms for ms, _, key in rows_w
+                     if any(nm in key for nm in kern_names))
+        wave_prof = {"wall_ms": prof["wall_ms"],
+                     "device_ms": prof["device_ms"], "kernel_ms": kern_w,
+                     "idle_share": max(0.0, 1 - prof["device_ms"]
+                                       / prof["wall_ms"]),
+                     "kernel_share_of_device": kern_w / prof["device_ms"]}
+        print(f"phase serve-stencil profiled wave: device busy "
+              f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
+              f"(idle share {100 * wave_prof['idle_share']:.0f}%), stencil "
+              f"kernels {kern_w:.2f} ms = "
+              f"{100 * wave_prof['kernel_share_of_device']:.0f}% of device "
+              f"time | card {smi}")
+    driver.close()
+
+    # every super-batch launched each kernel once per row op of its plan
+    want = dict.fromkeys(counters, 0)
+    per_batch = {}
+    key_spec = {driver.group_key(s, x): s for s, x, _ in jobs}
+    for key, m in metrics["plans"].items():
+        spec = key_spec[key]
+        batches = m["batches"] - groups_before.get(key, 0)
+        eng = engines[spec.name]
+        n = _launches_per_call(eng)
+        want[eng.backend] += batches * n
+        per_batch[spec.name] = {"plan": plans[spec.name].describe(),
+                                "batches": batches, "kernel": eng.backend,
+                                "launches_per_batch": n,
+                                "occupancy": m["batch_occupancy"],
+                                "padding_efficiency": m["padding_efficiency"]}
+    if wave != want:
+        raise AssertionError(f"launches in the wave {wave} != plan row ops "
+                             f"x super-batches {want}")
+    # every job against direct
+    worst = 0.0
+    ref = {s.name: StencilEngine(s, "direct", device=dev) for s in specs}
+    points = 0
+    for (spec, x, _), y in zip(jobs, results):
+        worst = max(worst, _err(y, ref[spec.name](x), TOL))
+        points += int(np.prod([s - 2 * spec.radius for s in x.shape]))
+    overall = metrics["overall"]
+    n_jobs = len(jobs)
+    out = {"jobs": n_jobs, "wall_s": wall, "warmup_s": warm_s,
+           "jobs_per_s": n_jobs / wall, "points": points,
+           "gstencil_s": points / wall / 1e9,
+           "max_abs_err_vs_direct": worst, "groups": per_batch,
+           "launches_in_wave": wave, "metrics": metrics,
+           "profiled_wave": wave_prof}
+    print(f"phase serve-stencil: {n_jobs} jobs from {SERVE_CLIENTS} client "
+          f"threads in {wall:.3f} s ({n_jobs / wall:.1f} jobs/s, "
+          f"{points / wall / 1e9:.2f} GStencil/s served), warm-up wave "
+          f"{warm_s:.1f} s; occupancy {overall['batch_occupancy']}, p50 "
+          f"{overall['latency']['p50_ms']:.1f} ms, p99 "
+          f"{overall['latency']['p99_ms']:.1f} ms; all jobs within {TOL} of "
+          f"direct (max |err| {worst:.3g}) | card {smi}")
+    for name, g in per_batch.items():
+        print(f"phase serve-stencil {name}: plan {g['plan']}, {g['batches']} "
+              f"super-batches, occupancy {g['occupancy']}, padding "
+              f"efficiency {g['padding_efficiency']}, {g['kernel']} launches "
+              f"per super-batch {g['launches_per_batch']} (the plan's row "
+              f"ops, whatever the batch size) | card {smi}")
+    print(f"phase serve-stencil tuner: {metrics['tuner']}; kernel launches "
+          f"in the wave {wave} | card {smi}")
+    out["launches"] = after                 # warm-up and timed waves
+
+    # one full super-batch of each spec through each kernel: launches per
+    # call stay at the plan's row ops, and the call's share outside kernels
+    out["super_batch"] = {}
+    for spec in specs:
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        bucket = (SERVE_EDGE_2D[1],) * 2 if spec.ndim == 2 else \
+            (SERVE_LEN_1D[1],)
+        xs = torch.randn((16,) + bucket, generator=g, device=dev)
+        row = {}
+        for b in CUDA_BACKENDS:
+            tuned = plans[spec.name]
+            plan = tuned if tuned.backend == b else Plan.default(spec, b)
+            eng = cache.engine(spec, plan, device=dev)
+            eng.apply_batched(xs)
+            torch.cuda.synchronize()
+            c0 = {k: fn.launches for k, fn in counters.items()}
+            ys = eng.apply_batched(xs)
+            torch.cuda.synchronize()
+            n = counters[b].launches - c0[b]
+            if n != _launches_per_call(eng):
+                raise AssertionError(f"{spec.name} {b}: {n} launches for a "
+                                     f"batch of 16")
+            for i in (0, 15):
+                _err(ys[i], ref[spec.name](xs[i]), TOL)
+            del ys
+            call_ms = _time_ms(lambda: eng.apply_batched(xs), 5, hold=False)
+            prof = _profile(lambda: eng.apply_batched(xs),
+                            f"super-batch {spec.name} {b} x16", smi, top=4)
+            kern = sum(ms for ms, _, key in prof.pop("rows")
+                       if any(nm in key for nm in kern_names))
+            row[b] = {"plan": plan.describe(), "launches": n,
+                      "call_ms": call_ms,
+                      "kernel_device_ms": kern if prof["device_ms"] else None,
+                      "outside_kernel_share": (
+                          max(0.0, 1 - kern / call_ms)
+                          if prof["device_ms"] else None),
+                      "gstencil_s": 16 * float(np.prod(
+                          [s - 2 * spec.radius for s in bucket]))
+                      / call_ms / 1e6}
+            print(f"super-batch {spec.name} {plan.describe()} x16 {bucket}: "
+                  f"{n} launches, "
+                  f"call {call_ms:.3f} ms ({row[b]['gstencil_s']:.2f} "
+                  f"GStencil/s), kernels "
+                  + (f"{kern:.3f} ms, outside-kernel share "
+                     f"{100 * row[b]['outside_kernel_share']:.0f}%"
+                     if prof["device_ms"] else "not measured")
+                  + f" | card {smi}")
+        out["super_batch"][spec.name] = row
+        del xs
+        torch.cuda.empty_cache()
+    del jobs, results
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -551,7 +899,7 @@ def main() -> int:
     for shape, r in (("box", 1), ("star", 2), ("box", 3)):  # 3-D: slabs
         spec3 = make_stencil(shape, 3, r, seed=r)
         x = randn(21 + 2 * r, 33 + 2 * r, 45 + 2 * r, seed=r)
-        got = dispatch.build(spec3, "cuda_direct", 2 * r + 2, dev)(x)
+        got = dispatch.build(spec3, "cuda_direct", 2 * r + 2, dev)(x[None])[0]
         want = StencilEngine(spec3, "direct", device=dev)(x)
         worst["direct"] = max(worst["direct"], _err(got, want, TOL))
         cases["direct"] += 1
@@ -709,16 +1057,22 @@ def main() -> int:
                                  device=dev)
         full_w = full_w.reshape(1, 1, 1, -1) if d == 1 else full_w[None, None]
         full_in = x.reshape(1, 1, 1, -1) if d == 1 else x[None, None]
+        # the one PyTorch call computing each kernel's function on its
+        # inputs; the windows GEMM's is the dense product on the windows
         lib = {"sptc": lambda: F.conv2d(conv_in, conv_w),
-               "gemm": lambda: F.conv2d(conv_in, conv_w),
+               "gemm": lambda: torch.matmul(km, win),
                "direct": lambda: F.conv2d(full_in, full_w)}
+        lib_name = {"sptc": "F.conv2d", "gemm": "torch.matmul",
+                    "direct": "F.conv2d"}
         for k, (kern, plain) in app.items():
             got, want = kern(), plain()
             err = _err(got, want, TOL)
+            lib_got = lib[k]()
             if k == "gemm":                  # tiles -> the (n_out, C) output
                 got = got.reshape(-1, c)[:n_out]
-            lib_err = float((lib[k]().reshape(got.shape) - got).abs().max())
-            del got, want
+                lib_got = lib_got.reshape(-1, c)[:n_out]
+            lib_err = float((lib_got.reshape(got.shape) - got).abs().max())
+            del got, want, lib_got
             ms = _time_ms(kern, 20)
             plain_ms = _time_ms(plain, 5)
             library_ms = _time_ms(lib[k], 20)
@@ -739,13 +1093,19 @@ def main() -> int:
                 shape = f"x {tuple(xd.shape)} taps {len(taps.host)}"
             bound, by = _bound_ms(nbytes, flops)
             line[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library": lib_name[k],
                        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                        "library_max_abs_diff": lib_err, "shape": shape,
                        "launch_ms": launch_ms}
+            if k == "gemm":                  # the paper's cuDNN yardstick too
+                line[k]["conv2d_ms"] = _time_ms(
+                    lambda: F.conv2d(conv_in, conv_w), 20)
             print(f"timing {spec.name} {k}: kernel_ms {ms:.4f} (with the "
                   f"host's launch {launch_ms:.4f}) plain_ms "
-                  f"{plain_ms:.4f} library_ms(F.conv2d) {library_ms:.4f} "
-                  f"bound_ms {bound:.4f} ({by}) launches "
+                  f"{plain_ms:.4f} library_ms({lib_name[k]}) {library_ms:.4f}"
+                  + (f" F.conv2d_ms {line[k]['conv2d_ms']:.4f}"
+                     if k == "gemm" else "")
+                  + f" bound_ms {bound:.4f} ({by}) launches "
                   f"{launches['cuda_' + k]} | {shape} | card {smi}")
         del app, lib, win, x2d, conv_in
         # end to end: engine GStencil/s for each backend, F.conv2d beside it
@@ -852,6 +1212,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     results["timing"]["sptc_spmm_v1"] = spmm
     results["timing"]["conv1d_causal"] = conv_rows
+
+    # -- phase tuned: the tuner's entry points over the paper suite ----------
+    tuned = _phase_tuned(dev, smi, randn, counters, rows)
+    results["tuned"] = tuned
+
+    # -- phase serve-stencil: modest grids from many clients -----------------
+    serve = _phase_serve_stencil(dev, smi, counters)
+    results["serve_stencil"] = serve
+    for b in counters:           # the main path: phases 3, tuned and serve
+        launches[b] += tuned["launches"][b] + serve["launches"][b]
 
     # -- phase lm: mamba2-2.7b served at full width and depth ----------------
     lm = _phase_lm(dev, smi)

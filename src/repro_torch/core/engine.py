@@ -28,6 +28,14 @@ Two workload classes ride on IR-level attributes:
 Input convention: ``x`` carries the halo — shape (N1+2kr, ..., Nd+2kr) for a
 k-step engine — and the output is the (N1, ..., Nd) interior update.
 
+Batches: every emission takes a leading batch axis, ``(B, *spatial)``, and
+``__call__`` is the batch of one.  The constant-coefficient row-op paths
+(``single``, ``star-axis``, ``rows``) fold the batch axis into the column
+axis of each 1-D application, and ``cuda_direct`` runs 1-D and 2-D batches
+on its kernel's batch axis: a super-batch costs as many kernel launches as
+one job.  Fused rows, variable coefficients and 3-D ``cuda_direct`` loop
+over the jobs of a batch.
+
 Device rule: an engine runs on the card (``device=None`` means ``cuda``)
 unless the caller passes ``device="cpu"``; without a card, ``device=None``
 raises instead of silently running on the CPU.
@@ -234,7 +242,8 @@ def _operand_fn(plan: LoweredPlan, i: int, device: torch.device,
 
 
 def _apply_op(fn: OpFn, x: Tensor, n_out: int, axis: int) -> Tensor:
-    """Run one 1-D application along ``axis`` of ``x``."""
+    """Run one 1-D application along ``axis`` of ``x``; every other axis (a
+    leading batch axis too) folds into the columns."""
     x = torch.movedim(x, axis, 0)
     rest = x.shape[1:]
     x2d = x.reshape(x.shape[0], -1)
@@ -243,22 +252,26 @@ def _apply_op(fn: OpFn, x: Tensor, n_out: int, axis: int) -> Tensor:
 
 
 def _op_slice(mode: str, op: RowOp, out_shape: Tuple[int, ...], r: int,
-              d: int) -> Tuple[Tuple[slice, ...], int]:
-    """(input slice, stencil axis) for one RowOp of a d-D application."""
+              d: int, lead: int = 0) -> Tuple[Tuple[slice, ...], int]:
+    """(input slice, stencil axis) for one RowOp of a d-D application whose
+    input carries ``lead`` leading batch axes; ``out_shape`` is spatial."""
+    batch = (slice(None),) * lead
     if mode == "single":
-        return (slice(None),), 0
+        return batch + (slice(None),), lead
     if mode == "star-axis":
         sl = tuple(slice(None) if a == op.axis else slice(r, r + out_shape[a])
                    for a in range(d))
-        return sl, op.axis
+        return batch + sl, lead + op.axis
     sl = tuple(slice(u, u + out_shape[a])
                for a, u in enumerate(op.lead)) + (slice(None),)
-    return sl, d - 1
+    return batch + sl, lead + d - 1
 
 
 def _emit_const(plan: LoweredPlan, device: torch.device,
                 dtype: torch.dtype) -> ApplyFn:
-    """Constant-coefficient single/star-axis/rows emission — shape-generic."""
+    """Constant-coefficient single/star-axis/rows emission on ``(B,
+    *spatial)`` — shape-generic; one 1-D application per RowOp for the
+    whole batch."""
     r, d = plan.spec.radius, plan.spec.ndim
     dec = plan.decompose
     mode = dec.mode
@@ -267,18 +280,28 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
     if mode == "single":
         f0 = op_fns[0]
 
-        def fn1(x: Tensor) -> Tensor:
-            return _apply_op(f0, x, x.shape[0] - 2 * r, 0)
+        def fn1(xs: Tensor) -> Tensor:
+            return _apply_op(f0, xs, xs.shape[1] - 2 * r, 1)
         return fn1
 
-    def fn(x: Tensor) -> Tensor:
-        out_shape = tuple(s - 2 * r for s in x.shape)
-        acc = torch.zeros(out_shape, dtype=x.dtype, device=x.device)
+    def fn(xs: Tensor) -> Tensor:
+        out_shape = tuple(s - 2 * r for s in xs.shape[1:])
+        acc = torch.zeros((xs.shape[0],) + out_shape, dtype=xs.dtype,
+                          device=xs.device)
         for op, f in zip(dec.ops, op_fns):
-            sl, axis = _op_slice(mode, op, out_shape, r, d)
-            acc = acc + _apply_op(f, x[sl], out_shape[axis], axis)
+            sl, axis = _op_slice(mode, op, out_shape, r, d, lead=1)
+            acc = acc + _apply_op(f, xs[sl], out_shape[axis - 1], axis)
         return acc
     return fn
+
+
+def _per_job(fn: ApplyFn) -> ApplyFn:
+    """A one-grid function applied job by job over ``(B, *spatial)``."""
+    def fb(xs: Tensor) -> Tensor:
+        if xs.shape[0] == 1:
+            return fn(xs[0])[None]
+        return torch.stack([fn(x) for x in xs])
+    return fb
 
 
 def _emit_fused_2d(plan: LoweredPlan, device: torch.device,
@@ -390,22 +413,24 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
 
 def _emit_step(plan: LoweredPlan, device: torch.device,
                dtype: torch.dtype) -> ApplyFn:
-    """One stencil application from the plan's tables (temporal_steps ignored)."""
+    """One stencil application on ``(B, *spatial)`` from the plan's tables
+    (temporal_steps ignored)."""
     if plan.emit.backend == "cuda_direct":
         from repro_torch.kernels import dispatch as kdispatch
         fn: ApplyFn = kdispatch.build(plan.spec, plan.emit.backend, plan.L,
                                       device)
         return fn
     if plan.emit.coefficient_mode == "var":
-        return _emit_var(plan, device, dtype)
+        return _per_job(_emit_var(plan, device, dtype))
     if plan.decompose.mode == "fused-rows":
-        return _emit_fused_2d(plan, device, dtype)
+        return _per_job(_emit_fused_2d(plan, device, dtype))
     return _emit_const(plan, device, dtype)
 
 
 def emit(plan: LoweredPlan, device: Device = None,
          dtype: torch.dtype = torch.float32) -> ApplyFn:
-    """LoweredPlan -> function on tensors of ``dtype`` on ``device``.
+    """LoweredPlan -> function on batches ``(B, *spatial)`` of ``dtype`` on
+    ``device``.
 
     ``device=None`` is the card (raises without one).  All device tables
     are built here, once.  A temporal-blocked plan runs ``k`` applications
@@ -461,15 +486,26 @@ class StencilEngine:
         self._fn = emit(self.plan_ir, self.device, dtype)
 
     # -- public API ----------------------------------------------------------
-    def __call__(self, x: Tensor) -> Tensor:
+    def _check(self, x: Tensor, ndim: int, what: str) -> None:
         if x.device != self.device or x.dtype != self.dtype:
             raise ValueError(
                 f"engine built for {self.dtype} on {self.device}, got "
                 f"{x.dtype} on {x.device}")
-        if x.dim() != self.spec.ndim:
-            raise ValueError(f"{self.spec.name} needs a {self.spec.ndim}-D "
-                             f"input, got shape {tuple(x.shape)}")
-        return self._fn(x)
+        if x.dim() != ndim:
+            raise ValueError(f"{self.spec.name} needs a {what} input, got "
+                             f"shape {tuple(x.shape)}")
+
+    def __call__(self, x: Tensor) -> Tensor:
+        self._check(x, self.spec.ndim, f"{self.spec.ndim}-D")
+        return self._fn(x[None])[0]
+
+    def apply_batched(self, xs: Tensor) -> Tensor:
+        """``(B, *spatial-with-halo)`` -> ``(B, *interior)``: every job in one
+        pass, with as many kernel launches as one job on the row-op paths
+        and 1-D/2-D ``cuda_direct`` (see the module docstring)."""
+        self._check(xs, self.spec.ndim + 1,
+                     f"(B, *spatial) {self.spec.ndim + 1}-D")
+        return self._fn(xs)
 
     def iterate(self, x: Tensor, steps: int) -> Tensor:
         """Iterative (Jacobi-style) application with zero-halo re-padding.
@@ -491,17 +527,19 @@ class StencilEngine:
 def apply_stencil(spec: StencilSpec, x: Tensor, backend: str = "direct",
                   L: Optional[int] = None, temporal_steps: int = 1,
                   coefficients: Optional[np.ndarray] = None) -> Tensor:
-    """One-shot functional entry point on ``x``'s device and dtype.
+    """One-shot functional entry point on ``x``'s device and dtype,
+    engine-cached by stencil content.
 
-    Builds a fresh :class:`StencilEngine` on every call (tables included):
-    the engine cache of the reference's tuner is not ported yet.  Callers
-    that apply one stencil repeatedly should keep an engine.
+    Repeated calls with the same (spec, backend, L, temporal_steps,
+    coefficients) on one device and dtype reuse one :class:`StencilEngine`
+    (tables included) from the process-wide ``repro_torch.tuner`` cache.
+    For measured backend/L selection use :func:`repro_torch.tuner.tuned_apply`.
     """
-    eng = StencilEngine(spec, backend=backend, L=L,
-                        temporal_steps=temporal_steps,
-                        coefficients=coefficients, device=x.device,
-                        dtype=x.dtype)
-    return eng(x)
+    from repro_torch.tuner.cache import default_cache
+    from repro_torch.tuner.plan import Plan
+    plan = Plan.default(spec, backend, L, temporal_steps=temporal_steps)
+    return default_cache().engine(spec, plan, coefficients=coefficients,
+                                  device=x.device, dtype=x.dtype)(x)
 
 
 def apply_sptc_v1(spec: StencilSpec, x: Tensor,

@@ -1,9 +1,14 @@
 """Engine backend -> CUDA kernel applicators + backend applicability.
 
-``applicable_backends`` says which of the engine's backends can run a spec
-on a device.  The plain torch backends (direct/gemm/sptc) run anywhere; the
-``cuda_*`` backends join them only on a CUDA device of compute capability
-9.0 or above, since their kernels are built for ``sm_90a``.
+``applicable_backends`` is the tuner's candidate universe: which of the
+engine's backends may execute a spec on a device.  On the CPU (and on a
+card below compute capability 9.0) that is the plain torch backends
+(direct/gemm/sptc).  On a card of capability 9.0 or above, where the
+``cuda_*`` kernels built for ``sm_90a`` run, it is those three kernels
+only: the plain backends are the kernels' plain versions there, and never
+enter a plan.  Variable coefficients keep the plain backends on every
+device — the kernels take constant coefficients, as the reference has no
+Pallas path for them either.
 """
 from __future__ import annotations
 
@@ -19,38 +24,52 @@ CUDA_BACKENDS = ("cuda_direct", "cuda_gemm", "cuda_sptc")
 MIN_CAPABILITY = (9, 0)
 
 
-def applicable_backends(spec: StencilSpec,
-                        device: Union[str, torch.device]) -> Tuple[str, ...]:
-    """Backends able to execute ``spec`` on ``device``."""
+def backend_universe(device: Union[str, torch.device]) -> str:
+    """Provenance tag of the candidate universe tuning ran against.
+
+    ``"torch+cuda"`` on a card where the ``cuda_*`` kernels run, else
+    ``"torch"``.  Recorded in the tuner's plan key; it never equals the
+    reference's ``"jnp"`` / ``"jnp+pallas"``, so plans of the two packages
+    never meet.
+    """
     device = torch.device(device)
-    out = list(PLAIN_BACKENDS)
     if device.type == "cuda" and \
             torch.cuda.get_device_capability(device) >= MIN_CAPABILITY:
-        out.extend(CUDA_BACKENDS)
-    return tuple(out)
+        return "torch+cuda"
+    return "torch"
+
+
+def applicable_backends(spec: StencilSpec, device: Union[str, torch.device],
+                        *, variable_coefficients: bool = False
+                        ) -> Tuple[str, ...]:
+    """Backends a plan for ``spec`` on ``device`` may use."""
+    from repro_torch.kernels.stencil_direct.ops import MAX_RADIUS
+    if variable_coefficients or backend_universe(device) == "torch":
+        return PLAIN_BACKENDS
+    if spec.radius > MAX_RADIUS:       # the direct kernel's instantiations
+        return tuple(b for b in CUDA_BACKENDS if b != "cuda_direct")
+    return CUDA_BACKENDS
 
 
 def build(spec: StencilSpec, backend: str, L: int,
           device: Union[str, torch.device]) -> Callable:
-    """Whole-stencil applicator for the 'cuda_direct' backend.
+    """Whole-stencil applicator for the 'cuda_direct' backend, on a batch
+    ``(B, *spatial)`` like every engine emission.
 
-    The tap buffers are built here, once, on ``device``.
+    The tap buffers are built here, once, on ``device``.  A batch of 1-D or
+    2-D grids is one launch (the kernel's batch axis; 1-D grids are the
+    rows of a ``rh = 0`` problem), a batch of 3-D grids loops over its jobs.
     """
     if backend != "cuda_direct":
         raise ValueError(f"dispatch.build handles cuda_direct, got {backend}")
-    from repro_torch.kernels.stencil_direct.ops import (stencil1d, stencil2d,
-                                                        stencil_taps)
+    from repro_torch.kernels.stencil_direct.ops import stencil2d, stencil_taps
 
     w = np.asarray(spec.weights)
     r = spec.radius
 
-    if spec.ndim == 1:
-        taps1 = stencil_taps(w, device)
-        return lambda x: stencil1d(taps1, x)
-
-    if spec.ndim == 2:
-        taps2 = stencil_taps(w, device)
-        return lambda x: stencil2d(taps2, x)
+    if spec.ndim <= 2:
+        taps = stencil_taps(w, device)
+        return lambda xs: stencil2d(taps, xs)
 
     # 3-D: decompose the leading axis (paper §3.2.1 row decomposition,
     # lifted one dimension): y[a] = sum_u stencil2d(w[u]) applied to x[a+u];
@@ -68,4 +87,4 @@ def build(spec: StencilSpec, backend: str, L: int,
             out_shape = (n1,) + tuple(s - 2 * r for s in x.shape[1:])
             return torch.zeros(out_shape, dtype=x.dtype, device=x.device)
         return acc
-    return fn3d
+    return lambda xs: torch.stack([fn3d(x) for x in xs])

@@ -5,9 +5,11 @@ from repro_torch.serving.metrics import (GroupMetrics, LatencyWindow,
                                          MetricsRegistry)
 from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
                                            QueueFullError)
+from repro_torch.serving.stencil_driver import StencilDriver
 
 __all__ = [
     "BatchPolicy", "BatchScheduler", "GenerateDriver", "GroupMetrics",
-    "LatencyWindow", "MetricsRegistry", "QueueFullError", "cache",
+    "LatencyWindow", "MetricsRegistry", "QueueFullError", "StencilDriver",
+    "cache",
     "decode_step", "generate", "prefill",
 ]

@@ -4,8 +4,8 @@ The port's own copy of ``repro/serving/scheduler.py`` (plain Python
 threading, no JAX).  The serving problem is the same for stencil grids and
 LM decode: many callers each submit one small job; the device wants few
 large aligned batches.  ``BatchScheduler`` is the traffic-class-agnostic
-core the LM driver (`serving/lm_driver.py`) runs on, and the stencil
-driver will reuse:
+core both drivers (`serving/stencil_driver.py`, `serving/lm_driver.py`)
+share:
 
   * ``submit(key, payload) -> Future`` — jobs enter a bounded queue and
     are grouped by ``key`` (whatever makes payloads batchable together:

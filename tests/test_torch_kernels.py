@@ -309,8 +309,8 @@ def test_cuda_direct_3d_zero_kernel_returns_zeros():
     spec = StencilSpec(shape="box", ndim=3, radius=1,
                        weights=np.zeros((3, 3, 3)))
     fn = dispatch.build(spec, "cuda_direct", 4, "cpu")
-    y = fn(torch.ones((8, 10, 12)))
-    assert tuple(y.shape) == (6, 8, 10) and y.dtype == torch.float32
+    y = fn(torch.ones((2, 8, 10, 12)))             # a batch of two grids
+    assert tuple(y.shape) == (2, 6, 8, 10) and y.dtype == torch.float32
     assert not y.any()
 
 
