@@ -755,6 +755,169 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
     return out
 
 
+def _phase_vet(dev, smi: str, randn) -> dict:
+    """The port's verifier on the card: invariants and code lint over
+    ``src/repro_torch``, the launch audit at the probe shapes, its planted
+    gather and the v1 control, then the whole paper suite at full size
+    through ``cuda_sptc`` and ``cuda_gemm``, whose outside-kernel counts
+    must equal those at the probe shape.  Every audited call's output is
+    held against the direct engine's."""
+    import torch
+    from repro_torch.core.engine import StencilEngine
+    from repro_torch.core.stencil import make_stencil, paper_suite
+    from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    from repro_torch.kernels.stencil_gemm import ops as gemm_ops
+    from repro_torch.vet import code as vet_code
+    from repro_torch.vet import invariants, lowering
+    from repro_torch.vet.baseline import Baseline
+    from repro_torch.vet.config import VetConfig
+    from repro_torch.vet.findings import counts_by_severity
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    cfg = VetConfig(root=ROOT)
+    baseline = Baseline.load(cfg.baseline_path())
+    tree = [ROOT / "src" / "repro_torch"]
+    n_files = len(list(vet_code.iter_py_files(tree)))
+    if n_files == 0:
+        raise AssertionError(f"the code analyzer found no file under {tree}")
+    for name, fs in (("invariants", invariants.run(cfg)),
+                     ("code", vet_code.run(cfg, tree))):
+        new, suppressed, _ = baseline.split(fs)
+        out[name] = {"counts": counts_by_severity(new),
+                     "baselined": len(suppressed),
+                     "findings": [f.format() for f in new]}
+        print(f"phase vet {name}: {counts_by_severity(new)}, "
+              f"{len(suppressed)} baselined"
+              + (f" ({n_files} files)" if name == "code" else ""))
+        for f in new:
+            print("  " + f.format())
+
+    counters = {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
+                "windows_gemm": gemm_ops.windows_gemm,
+                "sptc_spmm_windows": sptc_ops.sptc_spmm_windows}
+    for fn in counters.values():
+        fn.launches = 0
+    findings, verdict = lowering.run(cfg, device=dev)
+    out["verdict"] = verdict
+    out["findings"] = [f.format() for f in findings]
+    for kernel in sorted(verdict):
+        v = verdict[kernel]
+        print(f"phase vet audit {kernel}: "
+              f"{'certified' if v['certified'] else 'NOT certified'}, "
+              f"rebuild {v['rebuild']}")
+        for probe, c in sorted(v["probes"].items()):
+            print(f"  {probe}: " + " ".join(f"{k}={c[k]}" for k in c))
+    for f in findings:
+        print("  " + f.format())
+    wrong = [f.format() for f in findings
+             if f.rule == "launch-output-mismatch"]
+    if wrong:
+        raise AssertionError("audited calls disagree with direct: "
+                             + "; ".join(wrong))
+
+    # the controls: a planted standalone gather (before the launch, and
+    # inside the kernel's region) and the v1 path must be flagged by the
+    # fused rules, and compute the stencil all the same
+    out["controls"] = {}
+    fused_rules = ("pallas-fused-gather", "pallas-fused-overhead")
+    for shape_kind in ("star", "box"):
+        spec = make_stencil(shape_kind, 2, 1, seed=7)
+        x = lowering.probe_input((22, 22), dev)
+        for label, fn, want in (
+                ("planted x2d[perm]", lowering.planted_gather(spec, dev),
+                 fused_rules),
+                ("planted x2d[perm] in region",
+                 lowering.planted_gather(spec, dev, in_region=True),
+                 fused_rules),
+                ("v1 apply_sptc_v1", lowering.v1_path(spec),
+                 fused_rules + ("pallas-fused-program",))):
+            fs, got, _ = lowering.audit_fused(cfg, fn, spec, x,
+                                              f"{label}/{spec.name}")
+            rules = sorted({f.rule for f in fs})
+            if "launch-output-mismatch" in rules:
+                raise AssertionError(f"the {label} control on {spec.name} "
+                                     "disagrees with direct")
+            out["controls"][f"{label}/{spec.name}"] = {
+                "rules": rules, "counts": got.counts}
+            print(f"phase vet control {label} {spec.name}: flagged {rules}; "
+                  + " ".join(f"{k}={v}" for k, v in got.counts.items()))
+            if not set(rules) & set(want):
+                raise AssertionError(f"the fused rules pass the {label} "
+                                     f"control on {spec.name}")
+
+    # the paper suite at full size: counts as at the probe shape
+    out["suite"] = {}
+    for spec in paper_suite():
+        r = spec.radius
+        dims = (N_1D,) if spec.ndim == 1 else (N_2D, N_2D)
+        small = (200,) if spec.ndim == 1 else (16, 16)
+        x_small = lowering.probe_input(tuple(s + 2 * r for s in small), dev)
+        x = randn(*(s + 2 * r for s in dims), seed=41 * spec.ndim + r)
+        direct = StencilEngine(spec, "direct", device=dev)
+        want, want_small = direct(x), direct(x_small)
+        audits, errs = {}, {}
+        for b in ("cuda_gemm", "cuda_sptc"):
+            eng = StencilEngine(spec, b, device=dev)
+            per_call = _launches_per_call(eng)
+            counter = counters["sptc_spmm_fused" if b == "cuda_sptc"
+                               else "windows_gemm"]
+            small = lowering.audit_call(eng, x_small)
+            probe = small.counts
+            n0 = counter.launches
+            full = lowering.audit_call(eng, x)
+            errs[b] = _err(full.out, want, TOL)
+            _err(small.out, want_small, TOL)
+            full.out = small.out = None
+            if counter.launches - n0 != 2 * per_call or \
+                    full.counts["programs"] != per_call or \
+                    full.counts["kernels"] != per_call:
+                raise AssertionError(
+                    f"{spec.name} {b}: {counter.launches - n0} launches in "
+                    f"two calls, {full.counts['programs']} regions and "
+                    f"{full.counts['kernels']} kernels in one, for "
+                    f"{per_call} row ops")
+            if full.counts != probe:
+                raise AssertionError(
+                    f"{spec.name} {b}: outside-kernel counts depend on the "
+                    f"size: {probe} at {tuple(x_small.shape)}, {full.counts} "
+                    f"at {tuple(x.shape)}")
+            audits[b] = full
+        dense = audits["cuda_gemm"].counts
+        fs = lowering.check_fused(
+            cfg, f"sptc_spmm_fused/{spec.name}", audits["cuda_sptc"].counts,
+            audits["cuda_sptc"].regions, dense,
+            lowering.n_applications(spec, fused=False))
+        row = {}
+        for b, a in audits.items():
+            row[b] = dict(a.counts, kernel_ms=a.device_ms["kernel"],
+                          outside_ms=a.device_ms["outside"],
+                          kernel_share=a.kernel_share,
+                          max_abs_err_vs_direct=errs[b])
+            print(f"phase vet {spec.name} {'x'.join(map(str, dims))} {b}: "
+                  + " ".join(f"{k}={v}" for k, v in a.counts.items())
+                  + f" | device kernel {a.device_ms['kernel']:.3f} ms, "
+                  f"outside {a.device_ms['outside']:.3f} ms, kernel share "
+                  f"{100 * a.kernel_share:.1f}% (same counts at "
+                  f"{'x'.join(map(str, x_small.shape))}), max |err| vs "
+                  f"direct {errs[b]:.3g} | card {smi}")
+        row["fused_rules"] = [f.format() for f in fs]
+        print(f"phase vet {spec.name} cuda_sptc fused rules: "
+              + ("certified" if not fs else
+                 "; ".join(f"[{f.rule}] {f.message}" for f in fs)))
+        out["suite"][spec.name] = row
+        del x, want
+        torch.cuda.empty_cache()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    for k, n in out["launches"].items():
+        if n == 0:
+            raise AssertionError(f"phase vet never launched {k}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase vet: {out['seconds']:.1f} s, kernel launches "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1008,6 +1171,10 @@ def main() -> int:
     results["specs"]["box-2d1r"]["v1_sptc_spmm_max_abs_err"] = e_v1
     del x, want, got
 
+    # -- phase vet: the verifier, with the launch audit on the card ----------
+    vet = _phase_vet(dev, smi, randn)
+    results["vet"] = vet
+
     # -- phase 4: timing at the main path's shapes ---------------------------
     rows = {}
     for spec in suite:
@@ -1222,6 +1389,10 @@ def main() -> int:
     results["serve_stencil"] = serve
     for b in counters:           # the main path: phases 3, tuned and serve
         launches[b] += tuned["launches"][b] + serve["launches"][b]
+    # and phase vet's audited calls
+    launches["cuda_sptc"] += vet["launches"]["sptc_spmm_fused"]
+    launches["cuda_gemm"] += vet["launches"]["windows_gemm"]
+    launches["sptc_spmm"] += vet["launches"]["sptc_spmm_windows"]
 
     # -- phase lm: mamba2-2.7b served at full width and depth ----------------
     lm = _phase_lm(dev, smi)

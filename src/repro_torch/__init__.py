@@ -2,5 +2,5 @@
 its interpreter engine, hand-written Hopper kernels, the tuner that picks
 among them and the serving drivers.
 
-Imports torch and numpy only, never jax nor the JAX reference package.
+Imports torch and numpy only, never JAX nor the JAX reference package.
 """

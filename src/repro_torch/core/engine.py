@@ -268,14 +268,16 @@ def _op_slice(mode: str, op: RowOp, out_shape: Tuple[int, ...], r: int,
 
 
 def _emit_const(plan: LoweredPlan, device: torch.device,
-                dtype: torch.dtype) -> ApplyFn:
+                dtype: torch.dtype,
+                operand_fn: Callable[..., OpFn] = _operand_fn) -> ApplyFn:
     """Constant-coefficient single/star-axis/rows emission on ``(B,
     *spatial)`` — shape-generic; one 1-D application per RowOp for the
-    whole batch."""
+    whole batch.  ``operand_fn`` binds each operand's 1-D application (the
+    verifier passes a faulty one to build its controls)."""
     r, d = plan.spec.radius, plan.spec.ndim
     dec = plan.decompose
     mode = dec.mode
-    op_fns = [_operand_fn(plan, op.operand, device, dtype) for op in dec.ops]
+    op_fns = [operand_fn(plan, op.operand, device, dtype) for op in dec.ops]
 
     if mode == "single":
         f0 = op_fns[0]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES
+from repro_torch.kernels.common import region
 from repro_torch.kernels.conv1d.kernel import MAX_TAPS, conv1d_causal_launch
 from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
 
@@ -35,7 +36,8 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("x needs a unit channel stride")
     w = w.to(x.dtype).contiguous()
     if x.device.type == "cpu":
-        return conv1d_causal_plain(x, w)
+        with region("conv1d_causal"):
+            return conv1d_causal_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if w.shape[0] > MAX_TAPS:
@@ -44,7 +46,8 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    conv1d_causal_launch(x, w, y)
+    with region("conv1d_causal"):
+        conv1d_causal_launch(x, w, y)
     conv1d_causal.launches += 1
     return y
 

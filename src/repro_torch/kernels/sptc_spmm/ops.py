@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
+from repro_torch.kernels.common import region
 from repro_torch.kernels.sptc_spmm import fragments as fr
 from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
                                                   sptc_spmm_launch)
@@ -136,9 +137,10 @@ def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
     _check(op, x2d, n_out, compute_dtype)
     L = op.values.shape[0]
     if x2d.device.type == "cpu":
-        return sptc_fused_ref(op.values, op.meta_words, x2d, n_out=n_out,
-                              L=L, star_fast=op.star_fast,
-                              compute_dtype=compute_dtype)
+        with region("sptc_spmm_fused"):
+            return sptc_fused_ref(op.values, op.meta_words, x2d, n_out=n_out,
+                                  L=L, star_fast=op.star_fast,
+                                  compute_dtype=compute_dtype)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
     y = torch.empty((n_out, x2d.shape[1]), dtype=x2d.dtype, device=x2d.device)
@@ -146,8 +148,9 @@ def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
         return y
     # a float32 operand (checked above: the input's dtype) has both routes
     tf32 = x2d.dtype == torch.float32 and compute_dtype is None
-    sptc_fused_launch(x2d, y, op.tf32 if tf32 else op.bf16, n_out=n_out, L=L,
-                      tf32=tf32)
+    with region("sptc_spmm_fused"):
+        sptc_fused_launch(x2d, y, op.tf32 if tf32 else op.bf16, n_out=n_out,
+                          L=L, tf32=tf32)
     sptc_spmm_fused.launches += 1
     return y
 
@@ -197,7 +200,8 @@ def sptc_spmm_windows(values: torch.Tensor, meta: torch.Tensor,
                          f"than {SMEM_LIMIT} bytes of shared memory per block")
     values = values.to(windows.dtype)
     if windows.device.type == "cpu":
-        return sptc_spmm_windows_ref(values, meta, windows)
+        with region("sptc_spmm_windows"):
+            return sptc_spmm_windows_ref(values, meta, windows)
     if windows.device.type != "cuda":
         raise ValueError(f"no kernel for device {windows.device}")
     t, _, n = windows.shape
@@ -205,8 +209,9 @@ def sptc_spmm_windows(values: torch.Tensor, meta: torch.Tensor,
                     device=windows.device)
     if y.numel() == 0:
         return y
-    sptc_spmm_launch(values.contiguous(), meta.to(torch.int32).contiguous(),
-                     windows, y)
+    values, meta = values.contiguous(), meta.to(torch.int32).contiguous()
+    with region("sptc_spmm_windows"):
+        sptc_spmm_launch(values, meta, windows, y)
     sptc_spmm_windows.launches += 1
     return y
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES
+from repro_torch.kernels.common import region
 from repro_torch.kernels.stencil_direct.kernel import stencil2d_launch
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
 
@@ -78,7 +79,8 @@ def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] > 1 and x.stride(-1) != 1:
         raise ValueError("x needs a unit column stride")
     if x.device.type == "cpu":
-        return stencil2d_ref(taps.host, x, taps.rh, taps.rw)
+        with region("stencil2d"):
+            return stencil2d_ref(taps.host, x, taps.rh, taps.rw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if max(taps.rh, taps.rw) > MAX_RADIUS:
@@ -89,7 +91,8 @@ def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
     if y.numel() == 0 or not taps.host:
         y.zero_()
     else:
-        stencil2d_launch(xb, y, taps.weights, taps.star)
+        with region("stencil2d"):
+            stencil2d_launch(xb, y, taps.weights, taps.star)
         stencil2d.launches += 1
     return y if x.dim() == 3 else y[0]
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
+from repro_torch.kernels.common import region
 from repro_torch.kernels.stencil_gemm.kernel import windows_gemm_launch
 from repro_torch.kernels.stencil_gemm.ref import windows_gemm_ref
 
@@ -29,7 +30,8 @@ def windows_gemm(km: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"kernel matrix {tuple(km.shape)} exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
     if windows.device.type == "cpu":
-        return windows_gemm_ref(km, windows)
+        with region("windows_gemm"):
+            return windows_gemm_ref(km, windows)
     if windows.device.type != "cuda":
         raise ValueError(f"no kernel for device {windows.device}")
     t, _, c = windows.shape
@@ -37,7 +39,8 @@ def windows_gemm(km: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
                     device=windows.device)
     if y.numel() == 0:
         return y
-    windows_gemm_launch(km, windows, y)
+    with region("windows_gemm"):
+        windows_gemm_launch(km, windows, y)
     windows_gemm.launches += 1
     return y
 

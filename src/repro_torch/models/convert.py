@@ -3,7 +3,7 @@
 The JAX reference and this port share no objects.  A caller (or a test)
 that holds a reference config passes ``dataclasses.asdict(cfg)``, and one
 that holds reference parameters passes them as NumPy arrays
-(``jax.tree.map(np.asarray, params)``, stacked ``(L, ...)`` layer leaves);
+(every leaf as ``np.asarray``, stacked ``(L, ...)`` layer leaves);
 these helpers rebuild the port's objects, so both packages compute the
 same thing from the same weights.
 """

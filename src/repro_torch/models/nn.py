@@ -3,7 +3,7 @@
 
 The counterpart of ``repro/models/nn.py``'s ``ParamBuilder``: the same
 shapes, the same fan-in scale over the leading axis and the same zeros /
-ones inits.  ``torch.Generator`` and ``jax.random`` give different numbers
+ones inits.  ``torch.Generator`` and JAX's random keys give different numbers
 from the same seed, so weights that must match the reference are carried
 across with :func:`repro_torch.models.convert.params_from_numpy` instead.
 Logical-axis metadata waits for the sharding port.
