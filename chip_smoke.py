@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives five
+each kernel against its plain torch version on the card, and drives six
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -24,6 +24,12 @@ after:
   (star-2d1r and box-2d2r grids of edge 1025-2048, box-1d1r lengths of
   2-4 M points), every job against ``direct``, and each super-batch's
   kernel launches held to its plan's row ops;
+* the halo-exchange engine (``ShardedStencilEngine``) with every shard on
+  this card: the 2-D paper suite at 10240 x 10240 on meshes (2,) and
+  (2, 2), a non-divisible 10237 x 10239 grid, the 1-D box at 104,857,600
+  points on (4,), ``tuned_apply`` and ``StencilDriver`` with a mesh; every
+  output against the single-device engine, and each step's launches held
+  to (1 interior + 2 rims per partitioned axis) x the plan's launches;
 * serving ``mamba2-2.7b`` at full width and depth (64 layers, bf16, random
   weights from a seed) through ``GenerateDriver``: 8 requests of 512-token
   prompts, 32 new tokens each, with the causal-conv1d kernel in every
@@ -71,6 +77,10 @@ OUT_DIR = ROOT / "chiprun_out"
 #: GPU clock cycles of the spin kernel that holds the stream while the host
 #: enqueues a timed call: about 1 ms at the H100's 1.98 GHz
 SPIN_CYCLES = 2_000_000
+#: traces of each kind in phase vet's check of the profiler
+TRACE_CHECK_N = 200
+#: device names of the three stencil kernels
+STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
 
 
 def _time_ms(fn, reps: int, hold: bool = True) -> float:
@@ -629,13 +639,12 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
     wave = {b: after[b] - before[b] for b in counters}
     # the same traffic again under the profiler: the device's busy and idle
     # shares of a wave, and the kernels' share of its device time
-    kern_names = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
     prof = _profile(lambda: run_wave(100), "serve-stencil wave", smi, top=6)
     rows_w = prof.pop("rows")
     wave_prof = None
     if prof["device_ms"]:
         kern_w = sum(ms for ms, _, key in rows_w
-                     if any(nm in key for nm in kern_names))
+                     if any(nm in key for nm in STENCIL_KERNELS))
         wave_prof = {"wall_ms": prof["wall_ms"],
                      "device_ms": prof["device_ms"], "kernel_ms": kern_w,
                      "idle_share": max(0.0, 1 - prof["device_ms"]
@@ -729,7 +738,7 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
             prof = _profile(lambda: eng.apply_batched(xs),
                             f"super-batch {spec.name} {b} x16", smi, top=4)
             kern = sum(ms for ms, _, key in prof.pop("rows")
-                       if any(nm in key for nm in kern_names))
+                       if any(nm in key for nm in STENCIL_KERNELS))
             row[b] = {"plan": plan.describe(), "launches": n,
                       "call_ms": call_ms,
                       "kernel_device_ms": kern if prof["device_ms"] else None,
@@ -793,6 +802,8 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         for f in new:
             print("  " + f.format())
 
+    # a check of the profiler, not of the path: its launches are not counted
+    out["trace_check"] = _trace_check(dev, smi)
     counters = {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
                 "windows_gemm": gemm_ops.windows_gemm,
                 "sptc_spmm_windows": sptc_ops.sptc_spmm_windows}
@@ -804,8 +815,8 @@ def _phase_vet(dev, smi: str, randn) -> dict:
     for kernel in sorted(verdict):
         v = verdict[kernel]
         print(f"phase vet audit {kernel}: "
-              f"{'certified' if v['certified'] else 'NOT certified'}, "
-              f"rebuild {v['rebuild']}")
+              f"{'certified' if v['certified'] else 'NOT certified'}"
+              + (f", rebuild {v['rebuild']}" if "rebuild" in v else ""))
         for probe, c in sorted(v["probes"].items()):
             print(f"  {probe}: " + " ".join(f"{k}={c[k]}" for k in c))
     for f in findings:
@@ -831,7 +842,10 @@ def _phase_vet(dev, smi: str, randn) -> dict:
                  lowering.planted_gather(spec, dev, in_region=True),
                  fused_rules),
                 ("v1 apply_sptc_v1", lowering.v1_path(spec),
-                 fused_rules + ("pallas-fused-program",))):
+                 fused_rules + ("pallas-fused-program",)),
+                ("planted launch outside any region",
+                 lowering.planted_outside_launch(spec, dev),
+                 ("outside-device-ops",))):
             fs, got, _ = lowering.audit_fused(cfg, fn, spec, x,
                                               f"{label}/{spec.name}")
             rules = sorted({f.rule for f in fs})
@@ -888,6 +902,9 @@ def _phase_vet(dev, smi: str, randn) -> dict:
             cfg, f"sptc_spmm_fused/{spec.name}", audits["cuda_sptc"].counts,
             audits["cuda_sptc"].regions, dense,
             lowering.n_applications(spec, fused=False))
+        for b, a in audits.items():
+            fs += lowering.check_device_ops(cfg, f"{b}/{spec.name}",
+                                            a.counts)
         row = {}
         for b, a in audits.items():
             row[b] = dict(a.counts, kernel_ms=a.device_ms["kernel"],
@@ -902,9 +919,13 @@ def _phase_vet(dev, smi: str, randn) -> dict:
                   f"{'x'.join(map(str, x_small.shape))}), max |err| vs "
                   f"direct {errs[b]:.3g} | card {smi}")
         row["fused_rules"] = [f.format() for f in fs]
-        print(f"phase vet {spec.name} cuda_sptc fused rules: "
+        print(f"phase vet {spec.name} cuda_sptc fused rules and "
+              f"outside-device-ops (both backends): "
               + ("certified" if not fs else
                  "; ".join(f"[{f.rule}] {f.message}" for f in fs)))
+        if any(f.rule == "outside-device-ops" for f in fs):
+            raise AssertionError(f"{spec.name}: device work no torch op "
+                                 f"explains: {[f.format() for f in fs]}")
         out["suite"][spec.name] = row
         del x, want
         torch.cuda.empty_cache()
@@ -913,8 +934,288 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         if n == 0:
             raise AssertionError(f"phase vet never launched {k}")
     out["seconds"] = time.perf_counter() - t_phase
+    out["profiler_traces"] = dict(lowering.TRACE_STATS)
     print(f"phase vet: {out['seconds']:.1f} s, kernel launches "
-          f"{out['launches']}")
+          f"{out['launches']}; card traces {out['profiler_traces']}")
+    return out
+
+
+HALO_MESHES = ((2,), (2, 2))
+
+
+def _device_ops(fn) -> list:
+    """``(start, ms, name)`` of every device op of one call of ``fn``
+    (``torch.profiler``, after a warm-up), in device order.
+
+    The trace is the launch audit's (``vet.lowering.trace_device``): a
+    spin kernel opens it and is left out, and a trace that lost it (and
+    with it the head of the call) is taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.common import KERNEL_REGIONS
+    from repro_torch.vet.lowering import is_marker, trace_device
+    fn()
+    events, _ = trace_device(fn, torch.device("cuda", 0))
+    return sorted((e.time_range.start,
+                   (e.time_range.end - e.time_range.start) / 1e3, e.name)
+                  for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
+                  and e.name not in KERNEL_REGIONS
+                  and not is_marker(e))
+
+
+def _halo_split(eng, ext, geo, per_call: int) -> dict:
+    """One sharded step's device time (the state-resident step path of
+    ``iterate``): the interior call's stencil kernels (the first
+    ``per_call`` in device order: the interior is issued before the rims),
+    the rims' stencil kernels, the exchange (its copies and zero fills,
+    profiled alone) and the rest (the engine's work around its kernels,
+    the results' copies into the next buffer, phantom-row zeroing)."""
+    step = _device_ops(lambda: eng._steps(ext, geo, 1))
+    exchange = _device_ops(lambda: eng._exchange(ext, geo))
+    kern = [ms for _, ms, name in step
+            if any(k in name for k in STENCIL_KERNELS)]
+    total = sum(ms for _, ms, _ in step)
+    out = {"interior_kernels_ms": sum(kern[:per_call]),
+           "rim_kernels_ms": sum(kern[per_call:]),
+           "exchange_ms": sum(ms for _, ms, _ in exchange),
+           "device_ms": total, "device_ops": len(step),
+           "exchange_ops": len(exchange), "stencil_kernels": len(kern)}
+    out["rest_ms"] = total - out["interior_kernels_ms"] - \
+        out["rim_kernels_ms"] - out["exchange_ms"]
+    return out
+
+
+def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N) -> dict:
+    """How often a trace of one call loses device ops, and whether the
+    launch audit's traces (``vet.lowering.trace_device``) ever do: ``n``
+    bare traces and ``n`` audit traces of box-2d1r ``cuda_sptc`` at a
+    probe shape, each held against the audit's first count.  Raises if an
+    audit trace differs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import StencilEngine
+    from repro_torch.core.stencil import make_stencil
+    from repro_torch.vet import lowering
+    eng = StencilEngine(make_stencil("box", 2, 1, seed=7), "cuda_sptc",
+                        device=dev)
+    x = lowering.probe_input((18, 18), dev)
+    want = lowering.audit_call(eng, x).counts
+    bare_lost = 0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng(x)
+            torch.cuda.synchronize()
+        bare_lost += lowering._summarize(prof.events(), True).counts != want
+    t0 = dict(lowering.TRACE_STATS)
+    wrong = sum(lowering.profile_call(eng, x).counts != want
+                for _ in range(n))
+    retaken = lowering.TRACE_STATS["retaken"] - t0["retaken"]
+    print(f"phase vet trace check box-2d1r cuda_sptc 18x18: bare traces "
+          f"that lost device ops {bare_lost}/{n}; audit traces {n} "
+          f"({retaken} retaken for a lost marker), {wrong} with other "
+          f"counts than {want['kernels']} kernels + {want['device_ops']} "
+          f"device ops | card {smi}")
+    if wrong:
+        raise AssertionError(f"{wrong} of {n} audit traces lost device ops")
+    return {"n": n, "bare_lost": bare_lost, "audit_retaken": retaken,
+            "audit_wrong": wrong, "counts": want}
+
+
+def _phase_halo(dev, smi: str, randn) -> dict:
+    """The halo-exchange engine with every shard on this card: the paper
+    suite's 2-D specs at 10240² on meshes (2,) and (2, 2) through
+    ``cuda_direct`` and ``cuda_sptc`` (box-2d1r also through ``cuda_gemm``
+    and with ``temporal_steps=2``), a non-divisible 10237 x 10239 grid, the
+    1-D box at 104,857,600 points on (4,), then ``tuned_apply`` and
+    ``StencilDriver`` with a mesh.  Every sharded output is held against
+    the single-device engine; launches, exchanges, GStencil/s beside the
+    single-device engine's, and a profiled step's device-time split are
+    printed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.engine import StencilEngine
+    from repro_torch.core.stencil import make_stencil, paper_suite
+    from repro_torch.distributed import ShardedStencilEngine, grid_mesh
+    from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    from repro_torch.kernels.stencil_direct import ops as direct_ops
+    from repro_torch.kernels.stencil_gemm import ops as gemm_ops
+    from repro_torch.serving import BatchPolicy, StencilDriver
+    from repro_torch.tuner import PlanCache, tuned_apply
+    from repro_torch.vet.lowering import TRACE_STATS
+
+    counters = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
+                "cuda_gemm": gemm_ops.windows_gemm,
+                "cuda_direct": direct_ops.stencil2d}
+    for fn in counters.values():
+        fn.launches = 0
+    aside = dict.fromkeys(counters, 0)     # the single-device comparisons
+
+    @contextlib.contextmanager
+    def not_main():
+        c0 = {b: f.launches for b, f in counters.items()}
+        yield
+        for b, f in counters.items():
+            aside[b] += f.launches - c0[b]
+
+    def mesh(parts):
+        return grid_mesh(parts, devices=[dev] * int(np.prod(parts)))
+
+    suite = paper_suite()
+    box1 = next(s for s in suite if s.name == "box-2d1r")
+    cases = [(spec, (N_2D, N_2D), parts, b, 1)
+             for spec in suite if spec.ndim == 2
+             for parts in HALO_MESHES for b in ("cuda_direct", "cuda_sptc")]
+    cases += [(box1, (N_2D, N_2D), parts, b, k) for parts in HALO_MESHES
+              for b, k in (("cuda_gemm", 1), ("cuda_sptc", 2))]
+    cases += [(box1, (N_2D - 3, N_2D - 1), (2, 2), b, 1)
+              for b in ("cuda_direct", "cuda_sptc")]
+    cases += [(next(s for s in suite if s.name == "box-1d1r"), (N_1D,), (4,),
+               b, 1) for b in ("cuda_direct", "cuda_sptc")]
+    t_phase = time.perf_counter()
+    rows = []
+    for i, (spec, dims, parts, b, k) in enumerate(cases):
+        h = k * spec.radius
+        pts = float(np.prod(dims))
+        u = randn(*dims, seed=300 + i)
+        x = F.pad(u[None], (h,) * (2 * len(dims)))[0]
+        eng = ShardedStencilEngine(spec, mesh(parts), backend=b,
+                                   temporal_steps=k)
+        one = StencilEngine(spec, b, temporal_steps=k, device=dev)
+        naxes = len(eng.partition())
+        per_call = _launches_per_call(one) * k
+        want_launch = (1 + 2 * naxes) * per_call
+        c0 = counters[b].launches
+        eng.transport.reset()
+        got = eng(x)
+        torch.cuda.synchronize()
+        launches = counters[b].launches - c0
+        exchanges, sent = eng.transport.calls, eng.transport.sent_bytes
+        with not_main():
+            want = one(x)
+            direct = StencilEngine(spec, "direct", temporal_steps=k,
+                                   device=dev)(x)
+        e_one = _err(got, want, TOL)
+        e_direct = _err(got, direct, TOL)
+        del got, want, direct
+        got = eng.iterate(u, 4)
+        with not_main():
+            want = one.iterate(x, 4)[tuple(slice(h, -h) for _ in dims)]
+        e_it = _err(got, want, TOL)
+        del got, want
+        if launches != want_launch or exchanges != 2 * naxes:
+            raise AssertionError(
+                f"halo {spec.name} {parts} {b}: {launches} launches, "
+                f"{exchanges} exchanges in one step; want {want_launch} and "
+                f"{2 * naxes}")
+        ms = _time_ms(lambda: eng(x), 5, hold=False)
+        it_ms = _time_ms(lambda: eng.iterate(u, 4), 2, hold=False) / 4
+        with not_main():
+            one_ms = _time_ms(lambda: one(x), 5, hold=False)
+            one_it_ms = _time_ms(lambda: one.iterate(x, 4), 2,
+                                 hold=False) / 4
+        geo = eng._geometry(tuple(dims))
+        ext = eng._scatter(u[None], geo)
+        split = _halo_split(eng, ext, geo, per_call)
+        del ext
+        shards = eng.n_shards
+        row = {"spec": spec.name, "dims": list(dims), "mesh": list(parts),
+               "backend": b, "temporal_steps": k, "shards": shards,
+               "launches_per_step": launches,
+               "launch_formula": f"(1 interior + 2 rims x {naxes} axes) x "
+                                 f"{per_call} launches per call, all "
+                                 f"{shards} shards in each batched call",
+               "exchanges_per_step": exchanges,
+               "bytes_exchanged_per_step": sent,
+               "max_abs_err_vs_single": e_one,
+               "max_abs_err_vs_direct": e_direct,
+               "iterate4_max_abs_err_vs_single": e_it,
+               "call_ms": ms, "gstencil_s": pts / ms / 1e6,
+               "single_call_ms": one_ms, "single_gstencil_s": pts / one_ms / 1e6,
+               "iterate_step_ms": it_ms,
+               "iterate_gstencil_s": pts / it_ms / 1e6,
+               "single_iterate_step_ms": one_it_ms,
+               "single_iterate_gstencil_s": pts / one_it_ms / 1e6,
+               "step_split": split}
+        rows.append(row)
+        tag = f"/k{k}" if k != 1 else ""
+        print(f"phase halo {spec.name} {'x'.join(map(str, dims))} mesh "
+              f"{'x'.join(map(str, parts))} {b}{tag}: max |err| vs single "
+              f"{e_one:.3g}, vs direct {e_direct:.3g}, iterate(4) {e_it:.3g} "
+              f"(tol {TOL}); launches per step {launches} = "
+              f"{row['launch_formula']}; exchanges per step {exchanges}, "
+              f"{sent:,} bytes; sharded {row['gstencil_s']:.2f} GStencil/s "
+              f"({ms:.3f} ms) vs single-device {row['single_gstencil_s']:.2f} "
+              f"({one_ms:.3f} ms); iterate per step {it_ms:.3f} ms vs "
+              f"{one_it_ms:.3f} ms; one step's device time: interior kernels "
+              f"{split['interior_kernels_ms']:.3f} ms, rim kernels "
+              f"{split['rim_kernels_ms']:.3f} ms, exchange "
+              f"{split['exchange_ms']:.3f} ms ({split['exchange_ops']} ops), "
+              f"rest {split['rest_ms']:.3f} ms, of {split['device_ms']:.3f} "
+              f"ms in {split['device_ops']} device ops | card {smi}")
+        del u, x, eng, one
+        torch.cuda.empty_cache()
+
+    # the tuner with a mesh, time mode: candidates timed as sharded engines
+    out: dict = {"rows": rows}
+    x = randn(N_2D + 2, N_2D + 2, seed=400)
+    cache = PlanCache()
+    t0 = time.perf_counter()
+    got = tuned_apply(box1, x, cache=cache, mode="time", mesh=mesh((2, 2)))
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    with not_main():
+        e_t = _err(got, StencilEngine(box1, "direct", device=dev)(x), TOL)
+    (key, plan), = cache._plans.items()
+    out["tuned"] = {"key": key, "plan": plan.describe(), "seconds": tune_s,
+                    "max_abs_err_vs_direct": e_t}
+    print(f"phase halo tuned_apply box-2d1r {N_2D}x{N_2D} mesh 2x2 (time "
+          f"mode): plan {plan.describe()} in {tune_s:.2f} s, key {key}, max "
+          f"|err| vs direct {e_t:.3g} | card {smi}")
+    del x, got, cache
+    torch.cuda.empty_cache()
+
+    # StencilDriver with a mesh: 16 star-2d1r jobs of 2048² (halo included)
+    star1 = make_stencil("star", 2, 1, seed=1)
+    dcache = PlanCache()
+    driver = StencilDriver(cache=dcache, mode="time", device=dev,
+                           mesh=mesh((2,)),
+                           policy=BatchPolicy(max_batch=16, max_wait_ms=5.0))
+    jobs = [randn(2048, 2048, seed=500 + j) for j in range(16)]
+    t0 = time.perf_counter()
+    results = driver.map([(star1, x) for x in jobs], timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    key = driver.group_key(star1, jobs[0])
+    m = driver.metrics()
+    driver.close()
+    with not_main():
+        ref = StencilEngine(star1, "direct", device=dev)
+        e_d = max(_err(y, ref(x), TOL) for x, y in zip(jobs, results))
+    out["driver"] = {"jobs": len(jobs), "wall_s": wall, "group_key": key,
+                     "max_abs_err_vs_direct": e_d,
+                     "batches": m["overall"]["batches"],
+                     "plans": {k: p.describe()
+                               for k, p in dcache._plans.items()}}
+    print(f"phase halo StencilDriver mesh 2: {len(jobs)} star-2d1r jobs of "
+          f"2048x2048 in {wall:.2f} s (tune included), "
+          f"{m['overall']['batches']} batches, plans "
+          f"{out['driver']['plans']}, max |err| vs direct {e_d:.3g} | card "
+          f"{smi}")
+    del jobs, results
+    torch.cuda.empty_cache()
+    out["launches"] = {b: f.launches - aside[b] for b, f in counters.items()}
+    for b, n in out["launches"].items():
+        if n == 0:
+            raise AssertionError(f"phase halo never launched {b}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["profiler_traces"] = dict(TRACE_STATS)
+    print(f"phase halo: {out['seconds']:.1f} s, sharded kernel launches "
+          f"{out['launches']}; card traces since the start of the run "
+          f"{out['profiler_traces']}")
     return out
 
 
@@ -1387,8 +1688,13 @@ def main() -> int:
     # -- phase serve-stencil: modest grids from many clients -----------------
     serve = _phase_serve_stencil(dev, smi, counters)
     results["serve_stencil"] = serve
-    for b in counters:           # the main path: phases 3, tuned and serve
-        launches[b] += tuned["launches"][b] + serve["launches"][b]
+
+    # -- phase halo: the sharded engine, every shard on this card -----------
+    halo = _phase_halo(dev, smi, randn)
+    results["halo"] = halo
+    for b in counters:     # the main path: phases 3, tuned, serve and halo
+        launches[b] += (tuned["launches"][b] + serve["launches"][b]
+                        + halo["launches"][b])
     # and phase vet's audited calls
     launches["cuda_sptc"] += vet["launches"]["sptc_spmm_fused"]
     launches["cuda_gemm"] += vet["launches"]["windows_gemm"]

@@ -17,9 +17,12 @@ BatchScheduler` layer (the same one LM decode traffic uses, see
 
   * Jobs are bucketed by **tuner plan key** — spec content fingerprint
     × halo-inclusive shape bucket (next pow2 per dim) × dtype × device
-    × coefficient mode × temporal block size — so every batch runs one
-    engine under one tuned plan (a ``temporal_steps=k`` job carries the
-    k·r halo and never co-batches with single-step jobs).
+    × coefficient mode × temporal block size × partition geometry — so
+    every batch runs one engine under one tuned plan (a
+    ``temporal_steps=k`` job carries the k·r halo and never co-batches
+    with single-step jobs; a driver constructed with ``mesh=`` runs every
+    job halo-exchange-sharded and buckets apart from single-device
+    traffic).
   * ``padding`` policy decides how near-miss shapes inside a bucket
     co-batch: ``"bucket"`` trailing-pads every job to the pow2 bucket
     shape (one shape per plan, some wasted work), ``"max"`` pads to the
@@ -56,7 +59,7 @@ from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
                                            QueueFullError)
 from repro_torch.tuner.api import batch_group_key, tuned_apply_batched
 from repro_torch.tuner.cache import PlanCache, default_cache
-from repro_torch.tuner.plan import shape_bucket, single_device
+from repro_torch.tuner.plan import mesh_desc, shape_bucket
 
 PADDING_POLICIES = ("bucket", "max", "exact")
 
@@ -74,9 +77,10 @@ class StencilDriver:
 
     Thread-safe: ``submit`` may be called from any number of caller
     threads; batches execute on one scheduler worker so the tuner cache
-    is only ever touched single-threaded.  ``mesh`` is kept for the
-    reference's signature: a partitioned mesh raises until the
-    halo-exchange engine is ported (ROADMAP Queue 1, item 8).
+    is only ever touched single-threaded.  With ``mesh`` (a
+    :class:`~repro_torch.distributed.halo.GridMesh` on the driver's device,
+    or per-axis shard counts over the visible cards) every job's grid is
+    partitioned over it with halo exchange.
     """
 
     def __init__(self, *, cache: PlanCache | None = None,
@@ -89,11 +93,24 @@ class StencilDriver:
         if padding not in PADDING_POLICIES:
             raise ValueError(f"padding must be one of {PADDING_POLICIES}, "
                              f"got {padding!r}")
-        single_device(mesh)
         self.device = resolve_device(device)
         self.cache = cache if cache is not None else default_cache()
         self.padding = padding
         self.mode = mode
+        # a driver with a mesh partitions EVERY job's grid over it; the plan
+        # key's mesh field buckets these jobs apart from single-device
+        # traffic, so a sharded fleet and a single-device fleet sharing one
+        # cache file never serve each other's plans
+        if mesh is not None and mesh_desc(mesh) != "1":
+            from repro_torch.distributed.halo import grid_mesh
+            if isinstance(mesh, (int, tuple, list)):
+                mesh = grid_mesh(mesh)
+            if self.device not in mesh.devices:
+                raise ValueError(
+                    f"the mesh's shards lie on "
+                    f"{sorted({str(d) for d in mesh.devices})}, not on the "
+                    f"driver's device {self.device}")
+        self.mesh = mesh
         self.metrics_registry = MetricsRegistry()
         self._specs: dict = {}          # group key -> StencilSpec
         self._steps: dict = {}          # group key -> temporal block size
@@ -106,7 +123,7 @@ class StencilDriver:
                   temporal_steps: int = 1) -> str:
         """The batch group ``(spec, x)`` lands in (tuner plan key string)."""
         key = batch_group_key(spec, x.shape, x.dtype, self.device,
-                              temporal_steps=temporal_steps)
+                              temporal_steps=temporal_steps, mesh=self.mesh)
         if self.padding == "exact":
             key += ";exact=" + "x".join(str(s) for s in x.shape)
         return key
@@ -213,7 +230,8 @@ class StencilDriver:
             for i, j in enumerate(jobs):
                 xs[(i,) + tuple(slice(0, s) for s in j.x.shape)] = j.x
             ys = tuned_apply_batched(spec, xs, cache=self.cache,
-                                     mode=self.mode, temporal_steps=steps)
+                                     mode=self.mode, temporal_steps=steps,
+                                     mesh=self.mesh)
             results = [ys[(i,) + tuple(slice(0, s - halo) for s in shape)]
                        .clone(memory_format=torch.contiguous_format)
                        for i, shape in enumerate(shapes)]

@@ -8,6 +8,8 @@ tunes among the hand-written ``cuda_*`` kernels).  ``mode`` selects how a
 missing plan is chosen: ``"time"`` (measure candidates; the default) or
 ``"cost"`` (static model, no builds).  The ``REPRO_TORCH_TUNER_MODE`` env
 var overrides the default for processes where timing is undesirable.
+A partitioned ``mesh`` keys, tunes and runs the halo-exchange path
+(:class:`~repro_torch.distributed.halo.ShardedStencilEngine`).
 """
 from __future__ import annotations
 
@@ -16,11 +18,10 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core.engine import StencilEngine
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.device import Device, resolve_device
 from repro_torch.tuner.cache import PlanCache, default_cache
-from repro_torch.tuner.plan import Plan, plan_key
+from repro_torch.tuner.plan import Plan, mesh_desc, plan_key
 from repro_torch.tuner.search import autotune
 
 MODE_ENV_VAR = "REPRO_TORCH_TUNER_MODE"
@@ -28,6 +29,10 @@ MODE_ENV_VAR = "REPRO_TORCH_TUNER_MODE"
 
 def _resolve_mode(mode: str | None) -> str:
     return mode or os.environ.get(MODE_ENV_VAR, "time")
+
+
+def _is_sharded(mesh: Any) -> bool:
+    return mesh is not None and mesh_desc(mesh) != "1"
 
 
 def plan_for(spec: StencilSpec, shape: Sequence[int],
@@ -43,8 +48,11 @@ def plan_for(spec: StencilSpec, shape: Sequence[int],
     ``temporal_steps`` and ``coefficients`` extend the cache key (and the
     candidate set): a k-step temporal block tunes separately from the
     single-step plan, and a variable-coefficient field tunes per content
-    fingerprint over the backends that support it.  A partitioned ``mesh``
-    raises ``NotImplementedError`` (ROADMAP Queue 1, item 8).
+    fingerprint over the backends that support it.  ``mesh`` (a
+    :class:`~repro_torch.distributed.halo.GridMesh` or per-axis shard
+    counts) keys and tunes the halo-exchange-sharded path separately: its
+    blocks see other shapes and pay for the exchange, so a single-device
+    plan is never served to a sharded run or the reverse.
     """
     cache = cache if cache is not None else default_cache()
     device = resolve_device(device)
@@ -53,10 +61,22 @@ def plan_for(spec: StencilSpec, shape: Sequence[int],
                    mesh=mesh)
     plan = cache.lookup(key)
     if plan is None:
+        if _is_sharded(mesh):
+            if coefficients is not None:
+                raise NotImplementedError(
+                    "variable-coefficient stencils are not supported on the "
+                    "sharded halo-exchange path (the per-field tables are "
+                    "fixed to the global shape)")
+
+            def factory(s: StencilSpec, p: Plan, coefficients: Any = None,
+                        *, device: torch.device, dtype: torch.dtype) -> Any:
+                return cache.sharded_engine(s, p, mesh, dtype=dtype)
+        else:
+            factory = cache.engine
         before = cache.engine_plans(spec)
         result = autotune(spec, tuple(shape), dtype, device=device,
                           mode=_resolve_mode(mode),
-                          engine_factory=cache.engine,
+                          engine_factory=factory,
                           temporal_steps=temporal_steps,
                           coefficients=coefficients,
                           warmup=warmup, iters=iters)
@@ -75,13 +95,18 @@ def tuned_engine(spec: StencilSpec, shape: Sequence[int],
                  cache: PlanCache | None = None, mode: str | None = None,
                  temporal_steps: int = 1, coefficients: Any = None,
                  mesh: Any = None,
-                 warmup: int = 1, iters: int = 3) -> StencilEngine:
-    """The cached engine of the tuned plan on ``device`` (``None``: the card)."""
+                 warmup: int = 1, iters: int = 3) -> Any:
+    """The cached engine of the tuned plan on ``device`` (``None``: the
+    card): with a partitioned ``mesh`` a
+    :class:`~repro_torch.distributed.halo.ShardedStencilEngine` (same
+    halo-inclusive call convention), else a ``StencilEngine``."""
     cache = cache if cache is not None else default_cache()
     plan = plan_for(spec, shape, dtype, device=device, cache=cache,
                     mode=mode, temporal_steps=temporal_steps,
                     coefficients=coefficients, mesh=mesh, warmup=warmup,
                     iters=iters)
+    if _is_sharded(mesh):
+        return cache.sharded_engine(spec, plan, mesh, dtype=dtype)
     return cache.engine(spec, plan, coefficients=coefficients, device=device,
                         dtype=dtype)
 
@@ -96,7 +121,9 @@ def tuned_apply(spec: StencilSpec, x: torch.Tensor, *,
 
     A ``temporal_steps=k`` call expects ``x`` to carry the ``k·r`` halo and
     advances k steps; ``coefficients`` routes through the
-    variable-coefficient emitter (fixed-shape per field).
+    variable-coefficient emitter (fixed-shape per field); ``mesh``
+    block-partitions the grid over a mesh of shards with halo exchange
+    (`distributed/halo.py`).
     """
     eng = tuned_engine(spec, x.shape, x.dtype, device=x.device, cache=cache,
                        mode=mode, temporal_steps=temporal_steps,
@@ -178,13 +205,17 @@ def tuned_apply_batched(spec: StencilSpec, xs: Any, *,
     many kernel launches as one job on the row-op paths (the many-user
     serving path, continuously batched by `serving/stencil_driver.py`).
     With ``temporal_steps=k`` every job advances k steps (jobs carry the
-    k·r halo).
+    k·r halo).  With a partitioned ``mesh`` every job's grid is
+    block-partitioned over the mesh with halo exchange (the batch axis
+    itself stays unsharded).
     """
     cache = cache if cache is not None else default_cache()
     xs = _validate_batch(spec, xs, temporal_steps=temporal_steps)
     plan = plan_for(spec, tuple(xs.shape[1:]), xs.dtype, device=xs.device,
                     cache=cache, mode=mode, temporal_steps=temporal_steps,
                     mesh=mesh, warmup=warmup, iters=iters)
+    if _is_sharded(mesh):
+        return cache.sharded_batched(spec, plan, mesh, dtype=xs.dtype)(xs)
     return cache.batched(spec, plan, device=xs.device, dtype=xs.dtype)(xs)
 
 
@@ -197,7 +228,8 @@ def batch_group_key(spec: StencilSpec, shape: Sequence[int], dtype: Any,
     padded to the bucket shape: the key is the encoded
     :class:`~repro_torch.tuner.plan.PlanKey` (spec fingerprint ×
     halo-inclusive shape bucket × dtype × device kind × coefficient mode ×
-    temporal block size × universe × partition geometry).
+    temporal block size × universe × partition geometry — sharded jobs
+    never co-batch with single-device jobs).
     """
     return plan_key(spec, tuple(shape), dtype, device,
                     temporal_steps=temporal_steps, mesh=mesh).encode()

@@ -1,6 +1,6 @@
 """Plan + engine cache with JSON persistence.
 
-Three maps, three lifetimes:
+Five maps, three lifetimes:
 
   plans     PlanKey -> Plan.  Cheap, serializable — persisted to a JSON
             file so tuning survives process restarts (set the path, or
@@ -13,6 +13,9 @@ Three maps, three lifetimes:
   batched   same key -> the engine's batch entry, one function on
             ``(B, *spatial)`` that runs a whole batch with as many kernel
             launches as one job.
+  sharded   (spec fingerprint, Plan, mesh geometry, grid axes, mesh
+            devices, dtype) -> ShardedStencilEngine, and its batch entry
+            (``sharded_batched``): the halo-exchange path of a mesh.
 
 Persistence format (version 2; version-1 files still load)::
 
@@ -30,8 +33,7 @@ whose key/plan fails to decode, is skipped with a warning — never fatal.
 Keys are re-canonicalized on load.  Writes are atomic (tmp file + rename)
 and *merging*: if the file changed on disk since this process last read it
 (another server tuned concurrently), the on-disk entries are merged in
-first — in-memory plans win conflicts.  Sharded engines wait for the
-halo-exchange port (ROADMAP Queue 1, item 8).
+first — in-memory plans win conflicts.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from repro_torch.core.engine import StencilEngine
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.device import Device, resolve_device
 from repro_torch.tuner.plan import (Plan, PlanKey, coefficients_fingerprint,
-                                    spec_fingerprint)
+                                    mesh_desc, spec_fingerprint)
 
 CACHE_ENV_VAR = "REPRO_TORCH_TUNER_CACHE"
 _FORMAT_VERSION = 2
@@ -58,6 +60,11 @@ _READABLE_VERSIONS = (1, 2)
 #: engine-map key: (spec fingerprint, plan, coefficient fingerprint,
 #: device, dtype)
 EngineKey = Tuple[str, Plan, str, torch.device, torch.dtype]
+
+#: sharded-engine key: (spec fingerprint, plan, mesh geometry, grid axes,
+#: the mesh's devices, dtype)
+ShardedKey = Tuple[str, Plan, str, Tuple[int, ...], Tuple[torch.device, ...],
+                   torch.dtype]
 
 
 @dataclasses.dataclass
@@ -97,6 +104,8 @@ class PlanCache:
         self._plans: Dict[str, Plan] = {}
         self._engines: Dict[EngineKey, StencilEngine] = {}
         self._batched: Dict[EngineKey, Callable] = {}
+        self._sharded: Dict[ShardedKey, Any] = {}
+        self._sharded_batched: Dict[ShardedKey, Callable] = {}
         self._disk_sig: Optional[Tuple[int, int]] = None
         if self.path is not None:
             self.load(missing_ok=True)
@@ -153,7 +162,9 @@ class PlanCache:
     def engine_plans(self, spec: StencilSpec) -> frozenset:
         """Plans that currently have a cached engine for ``spec``."""
         fp = spec_fingerprint(spec)
-        return frozenset(k[1] for k in self._engines if k[0] == fp)
+        plans = {k[1] for k in self._engines if k[0] == fp}
+        plans.update(k[1] for k in self._sharded if k[0] == fp)
+        return frozenset(plans)
 
     def prune_engines(self, spec: StencilSpec,
                       keep: "frozenset[Plan] | set[Plan]") -> int:
@@ -167,7 +178,12 @@ class PlanCache:
         for k in drop:
             del self._engines[k]
             self._batched.pop(k, None)
-        return len(drop)
+        sdrop = [k for k in self._sharded
+                 if k[0] == fp and k[1] not in keep]
+        for k in sdrop:
+            del self._sharded[k]
+            self._sharded_batched.pop(k, None)
+        return len(drop) + len(sdrop)
 
     def batched(self, spec: StencilSpec, plan: Plan,
                 coefficients: Optional[Any] = None, *,
@@ -182,6 +198,59 @@ class PlanCache:
                               device=k[3], dtype=dtype)
             fn = eng.apply_batched
             self._batched[k] = fn
+        return fn
+
+    # -- sharded engines -----------------------------------------------------
+    def _sharded_key(self, spec: StencilSpec, plan: Plan, mesh: Any,
+                     grid_axes: Optional[Tuple[int, ...]],
+                     dtype: torch.dtype) -> Tuple[ShardedKey, Any]:
+        from repro_torch.distributed.halo import grid_mesh
+        if isinstance(mesh, (int, tuple, list)):
+            mesh = grid_mesh(mesh)
+        key = (spec_fingerprint(spec), plan, mesh_desc(mesh),
+               tuple(grid_axes) if grid_axes is not None else (),
+               tuple(mesh.devices), dtype)
+        return key, mesh
+
+    def sharded_engine(self, spec: StencilSpec, plan: Plan, mesh: Any,
+                       grid_axes: Optional[Tuple[int, ...]] = None, *,
+                       dtype: torch.dtype = torch.float32):
+        """The (memoized) halo-exchange engine realizing ``plan`` on
+        ``mesh`` in ``dtype``.
+
+        ``mesh`` is a :class:`~repro_torch.distributed.halo.GridMesh` or an
+        int/tuple of per-axis shard counts (see
+        :func:`~repro_torch.distributed.halo.grid_mesh`, which places them
+        on the visible cards).  Keyed by the canonical mesh geometry and the
+        mesh's devices: the engine's tables live on those.
+        """
+        from repro_torch.distributed.halo import ShardedStencilEngine
+        k, mesh = self._sharded_key(spec, plan, mesh, grid_axes, dtype)
+        eng = self._sharded.get(k)
+        if eng is None:
+            self.stats.engine_builds += 1
+            eng = ShardedStencilEngine(
+                spec, mesh, backend=plan.backend, L=plan.L,
+                star_fast_path=plan.star_fast_path,
+                fuse_rows=plan.fuse_rows,
+                temporal_steps=plan.temporal_steps,
+                grid_axes=grid_axes, dtype=dtype)
+            self._sharded[k] = eng
+        else:
+            self.stats.engine_hits += 1
+        return eng
+
+    def sharded_batched(self, spec: StencilSpec, plan: Plan, mesh: Any,
+                        grid_axes: Optional[Tuple[int, ...]] = None, *,
+                        dtype: torch.dtype = torch.float32) -> Callable:
+        """The sharded engine's batch entry, memoized: every job of the
+        batch partitioned over the mesh, the batch axis unsharded."""
+        k, mesh = self._sharded_key(spec, plan, mesh, grid_axes, dtype)
+        fn = self._sharded_batched.get(k)
+        if fn is None:
+            fn = self.sharded_engine(spec, plan, mesh, grid_axes=grid_axes,
+                                     dtype=dtype).apply_batched
+            self._sharded_batched[k] = fn
         return fn
 
     # -- persistence ---------------------------------------------------------
@@ -290,6 +359,8 @@ class PlanCache:
         self._plans.clear()
         self._engines.clear()
         self._batched.clear()
+        self._sharded.clear()
+        self._sharded_batched.clear()
         self._disk_sig = None
         if remove_file and self.path is not None and self.path.exists():
             self.path.unlink()

@@ -125,9 +125,10 @@ def mesh_desc(mesh: Any) -> str:
     its per-grid-axis shard counts, e.g. ``"8"`` (1-D mesh) or ``"4x2"``
     (2-D).  Accepts ``None``, an int, a tuple of shard counts, an
     already-encoded string, or anything mesh-shaped (``axis_names`` +
-    ``shape`` attributes).  Extent-1 axes carry no partitioning and are
-    dropped — a mesh of all-1 extents IS single-device execution and
-    canonicalizes to ``"1"``.
+    ``shape`` attributes, i.e. a
+    :class:`~repro_torch.distributed.halo.GridMesh`).  Extent-1 axes
+    carry no partitioning and are dropped — a mesh of all-1 extents IS
+    single-device execution and canonicalizes to ``"1"``.
     """
     if mesh is None:
         return "1"
@@ -151,17 +152,6 @@ def mesh_desc(mesh: Any) -> str:
         raise ValueError(f"mesh shard counts must be >= 1, got {counts}")
     counts = [c for c in counts if c > 1]
     return "x".join(str(c) for c in counts) if counts else "1"
-
-
-def single_device(mesh: Any) -> str:
-    """``mesh_desc(mesh)``, raising for a partitioned mesh: the port has no
-    halo-exchange engine yet (ROADMAP Queue 1, item 8)."""
-    desc = mesh_desc(mesh)
-    if desc != "1":
-        raise NotImplementedError(
-            f"mesh {desc!r}: sharded halo-exchange execution is not ported "
-            f"yet (ROADMAP Queue 1, item 8); the port runs on one device")
-    return desc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +213,8 @@ def plan_key(spec: StencilSpec, shape: Tuple[int, ...], dtype: Any,
              temporal_steps: int = 1, mesh: Any = None) -> PlanKey:
     """The key of tuning ``spec`` on a halo-inclusive ``shape`` of ``dtype``
     on ``device`` (``None``: the card, raising without one); the key's
-    device kind is that device's type, ``cpu`` or ``cuda``."""
+    device kind is that device's type, ``cpu`` or ``cuda``.  ``mesh``
+    keys the halo-exchange-sharded path apart (see :func:`mesh_desc`)."""
     from repro_torch.kernels.dispatch import backend_universe
     dev = resolve_device(device)
     coeff = ("const" if coefficients is None
@@ -232,4 +223,4 @@ def plan_key(spec: StencilSpec, shape: Tuple[int, ...], dtype: Any,
                    bucket=shape_bucket(tuple(shape)),
                    dtype=dtype_name(dtype),
                    device=dev.type, coeff=coeff, steps=temporal_steps,
-                   univ=backend_universe(dev), mesh=single_device(mesh))
+                   univ=backend_universe(dev), mesh=mesh_desc(mesh))

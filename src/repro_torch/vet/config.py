@@ -39,6 +39,11 @@ DEFAULT_SEVERITY: Dict[str, str] = {
     "pallas-fused-program": "error",
     "pallas-fused-gather": "error",
     "pallas-fused-overhead": "error",
+    # launch audit on the card: device work no torch op explains
+    "outside-device-ops": "error",
+    # sharded halo-exchange analyzer
+    "sharded-collective-budget": "error",
+    "sharded-all-gather": "error",
     # code analyzer
     "code-jit-per-call": "error",
     "code-host-sync": "warning",

@@ -19,7 +19,8 @@ the ``aten::copy_`` under an ``aten::clone`` under an ``aten::pad`` is one
 copy.  Classes: products (``aten::mm``/``bmm``/``addmm``/``baddbmm``),
 gathers (``aten::index``/``gather``/``index_select``/``take``), copies
 (``aten::copy_``), scatters (``aten::index_put_``/``scatter*``, the
-counterpart of a dynamic-update-slice) and adds (information only).
+counterpart of a dynamic-update-slice), adds and fills
+(``aten::fill_``/``zero_``: a zero fill or memset).
 Host uploads are ``aten::lift_fresh`` (a tensor made from host data) on
 the CPU and ``Memcpy HtoD`` device events on the card.  On the card the
 device events are split into the region kernels (by the kernel names of
@@ -55,13 +56,36 @@ Rules (the reference's rule ids where the meaning carries over):
                           from the direct engine's by more than
                           ``OUTPUT_TOL`` × (1 + |direct|): an engine that
                           skipped work is not certified
+  outside-device-ops      (card) a ``cuda_*`` call's device ops outside the
+                          region kernels exceed what its torch ops outside
+                          the regions explain (one per copy, add and fill),
+                          or it launched more region kernels than it
+                          entered regions: device work no torch op shows
+                          (a raw memset, a launch outside any region)
 
 ``run`` returns the findings and ``verdict()``-style per-kernel counts
 keyed ``stencil_gemm``, ``sptc_spmm`` and ``sptc_spmm_fused``, as the
-reference keys them.  It runs on the card unless ``device="cpu"`` is
-given (there the cuda_* engines run their kernels' plain versions inside
-the same regions); ``device=None`` raises without a card.  The sharded
-halo analyzer waits for the port's sharded engine.
+reference keys them, and ``sharded_halo``.  It runs on the card unless
+``device="cpu"`` is given (there the cuda_* engines run their kernels'
+plain versions inside the same regions); ``device=None`` raises without a
+card.
+
+The **sharded analyzer** (``analyze_sharded``) certifies the halo-exchange
+step path of ``distributed/halo.py`` on the reference's probes, with every
+shard of a ``LocalTransport`` mesh on the audited device, so it always
+runs.  It counts the transport's shifts and watches, under a
+``TorchDispatchMode``, every op of the step path outside the per-shard
+program (the engine's emission, which the rules above audit):
+
+  sharded-collective-budget  a fused k-step makes != 2 exchanges per
+                          partitioned mesh axis (low + high edge; the
+                          zero-flux boundary is the transport's zero fill)
+  sharded-all-gather      an op whose output holds the global grid's
+                          element count laid out as one grid (spanning
+                          more than one shard along a partitioned axis),
+                          or any ``torch.distributed`` collective other
+                          than point to point: the global grid
+                          rematerialized instead of width-k·r halos
 """
 from __future__ import annotations
 
@@ -70,8 +94,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.engine import (StencilEngine, _emit_const,
                                      _operand_fn, apply_sptc_v1)
@@ -98,6 +125,7 @@ OP_CLASSES: Dict[str, Tuple[str, ...]] = {
                  "aten::scatter_", "aten::scatter_add", "aten::scatter_add_",
                  "aten::scatter_reduce", "aten::scatter_reduce_"),
     "adds": ("aten::add", "aten::add_"),
+    "fills": ("aten::fill_", "aten::zero_"),
 }
 _CLASS_OF = {op: c for c, ops in OP_CLASSES.items() for op in ops}
 UPLOAD_OP = "aten::lift_fresh"
@@ -105,6 +133,17 @@ UPLOAD_OP = "aten::lift_fresh"
 COUNT_KEYS = ("programs",) + tuple(OP_CLASSES) + ("uploads",)
 #: float32: |got - direct| <= OUTPUT_TOL * (1 + |direct|)
 OUTPUT_TOL = 3e-5
+
+#: a trace on the card now and then loses the device events at its head
+#: (on an H100, torch 2.11: from one to all of a call's device ops); every
+#: card trace opens with spin kernels, and a trace that lost them all is
+#: taken again, up to ``TRACE_ATTEMPTS`` times
+MARKER_KERNEL = "spin_kernel"
+MARKER_CYCLES = 200_000
+MARKERS = 2
+TRACE_ATTEMPTS = 8
+#: card traces taken / retaken by ``trace_device`` in this process
+TRACE_STATS = {"traces": 0, "retaken": 0}
 
 #: (spec ctor args, fuse_rows, temporal steps, probe input shape) — the
 #: reference's probes; the k=2 probe certifies the per-step profile
@@ -207,7 +246,8 @@ def _summarize(events, on_card: bool) -> CallAudit:
         # each region also shows on the device as a user annotation
         for e in sorted((e for e in events if e.device_type == DeviceType.CUDA
                          and e.name not in KERNEL_REGIONS
-                         and not e.is_user_annotation),
+                         and not e.is_user_annotation
+                         and not is_marker(e)),
                         key=lambda e: e.time_range.start):
             ms = (e.time_range.end - e.time_range.start) / 1e3
             sequence.append(e.name)
@@ -223,19 +263,56 @@ def _summarize(events, on_card: bool) -> CallAudit:
                      sequence=tuple(sequence), device_ms=device_ms)
 
 
+def trace_device(fn: Callable[[], object], device: torch.device):
+    """``(events, result)`` of one profiled call of ``fn()`` on the card.
+
+    The trace opens with ``MARKERS`` ``MARKER_KERNEL`` spins on
+    ``device``'s stream, the device idle before and between them; since
+    lost events are those at a trace's head, a trace that holds a marker
+    holds every device op of the call.  A trace without one is taken
+    again; after ``TRACE_ATTEMPTS`` such traces this raises.  The markers
+    are left for the caller to skip (``is_marker``)."""
+    seen = []
+    for _ in range(TRACE_ATTEMPTS):
+        TRACE_STATS["traces"] += 1
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.device(device):
+                for _ in range(MARKERS):
+                    torch.cuda._sleep(MARKER_CYCLES)
+                    torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize(device)
+        events = prof.events()
+        on_dev = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+        markers = sum(map(is_marker, on_dev))
+        if markers:
+            return events, out
+        TRACE_STATS["retaken"] += 1
+        seen.append(len(on_dev))
+    raise RuntimeError(
+        f"torch.profiler lost the head of {TRACE_ATTEMPTS} traces in a row "
+        f"(device events per trace: {seen}, with no marker of {MARKERS}): "
+        "no device count can be trusted")
+
+
+def is_marker(event) -> bool:
+    return MARKER_KERNEL in event.name
+
+
 def profile_call(fn: Callable[[torch.Tensor], object],
                  x: torch.Tensor) -> CallAudit:
     """Profile one call of ``fn(x)`` (no warm-up): outside-region counts."""
     on_card = x.device.type == "cuda"
-    activities = [ProfilerActivity.CPU]
     if on_card:
-        activities.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize(x.device)
-    with profile(activities=activities) as prof:
-        out = fn(x)
-        if on_card:
-            torch.cuda.synchronize(x.device)
-    audit = _summarize(prof.events(), on_card)
+        events, out = trace_device(lambda: fn(x), x.device)
+    else:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn(x)
+        events = prof.events()
+    audit = _summarize(events, on_card)
     audit.out = out
     return audit
 
@@ -404,6 +481,31 @@ def check_fused(cfg: VetConfig, symbol: str, counts: Dict[str, int],
     return findings
 
 
+def check_device_ops(cfg: VetConfig, symbol: str,
+                     counts: Dict[str, int]) -> List[Finding]:
+    """``outside-device-ops`` for one card audit of a ``cuda_*`` call: each
+    copy, add and fill outside the regions is one device op, and each
+    region one kernel; anything beyond is device work no torch op shows.
+    Counts without ``device_ops`` (a CPU audit) pass."""
+    if "device_ops" not in counts:
+        return []
+    findings: List[Finding] = []
+    explained = counts["copies"] + counts["adds"] + counts["fills"]
+    if counts["device_ops"] > explained:
+        findings.append(_finding(
+            cfg, "outside-device-ops", symbol,
+            f"{counts['device_ops']} device op(s) outside the region "
+            f"kernels, but the torch ops outside the regions explain "
+            f"{explained} ({counts['copies']} copies + {counts['adds']} adds "
+            f"+ {counts['fills']} fills) — device work no torch op shows"))
+    if counts["kernels"] > counts["programs"]:
+        findings.append(_finding(
+            cfg, "outside-device-ops", symbol,
+            f"{counts['kernels']} region kernel(s) launched for "
+            f"{counts['programs']} region(s) — a launch outside any region"))
+    return findings
+
+
 def audit_fused(cfg: VetConfig, fn: Callable[[torch.Tensor], object],
                 spec: StencilSpec, x: torch.Tensor, symbol: str
                 ) -> Tuple[List[Finding], CallAudit, CallAudit]:
@@ -415,6 +517,7 @@ def audit_fused(cfg: VetConfig, fn: Callable[[torch.Tensor], object],
                                      device=x.device), x)
     findings = check_fused(cfg, symbol, got.counts, got.regions,
                            dense.counts, n_applications(spec, fused=False))
+    findings += check_device_ops(cfg, symbol, got.counts)
     findings += check_output(cfg, symbol, got.out, spec, x)[0]
     return findings, got, dense
 
@@ -464,6 +567,29 @@ def planted_gather(spec: StencilSpec, device: Device = None,
     return lambda x: fn(x[None])[0]
 
 
+def planted_outside_launch(spec: StencilSpec, device: Device = None
+                           ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A cuda_sptc engine whose every call on the card also launches the
+    direct kernel through its ctypes launcher, outside any region and any
+    torch op: device work only the card's device events show, the fault
+    ``outside-device-ops`` exists to catch.  The answer holds."""
+    from repro_torch.kernels.stencil_direct.kernel import stencil2d_launch
+    from repro_torch.kernels.stencil_direct.ops import stencil_taps
+    device = resolve_device(device)
+    engine = StencilEngine(spec, "cuda_sptc", device=device)
+    taps = stencil_taps(spec.weights, device)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        y = engine(x)
+        if x.device.type == "cuda":       # a 1-D grid is one row
+            x3, y3 = x.reshape((1, -1) + x.shape[-1:]), y.reshape(
+                (1, -1) + y.shape[-1:])
+            stencil2d_launch(x3, torch.empty_like(y3), taps.weights,
+                             taps.star)
+        return y
+    return fn
+
+
 def v1_path(spec: StencilSpec) -> Callable[[torch.Tensor], torch.Tensor]:
     """The v1 compressed SpMM entry: its swap is a window gather outside
     ``sptc_spmm_windows`` by design — the control the fused rules flag."""
@@ -494,6 +620,195 @@ def check_rebuild(cfg: VetConfig, fn: Callable[[torch.Tensor], object],
     return findings, {"same_sequence": same, "uploads": uploads}
 
 
+# ---------------------------------------------------------------------------
+# Sharded halo exchange: the exchange budget on the distributed step path
+# ---------------------------------------------------------------------------
+
+_SHARDED_PATH = "src/repro_torch/distributed/halo.py"
+
+#: torch.distributed ops a step may run: point to point only
+P2P_OPS = ("send", "recv_", "recv_any_source_")
+_DIST_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+
+
+def sharded_probes() -> Tuple[Tuple[Tuple[str, int, int], tuple, int,
+                                    Tuple[int, ...]], ...]:
+    """(spec ctor args, mesh parts, temporal steps, probe interior shape):
+    the reference's probes, every shard on the audited device."""
+    return ((("star", 2, 1), (2,), 1, (24, 24)),
+            (("box", 2, 1), (2,), 2, (24, 24)),
+            (("box", 2, 2), (2, 2), 1, (24, 24)))
+
+
+class _StepPath(TorchDispatchMode):
+    """Records the ops of a sharded step outside the per-shard program:
+    those whose output is a rematerialized global grid, and any collective
+    other than point to point."""
+
+    def __init__(self, engine, geo) -> None:
+        super().__init__()
+        self.engine = engine
+        self.numel = int(np.prod(geo.gshape))
+        nd = engine.spec.ndim
+        # the widest a shard's buffer gets along each partitioned axis
+        self.limit = {a: geo.ext[a] for a in engine.partition()}
+        self.nd = nd
+        self.inside = 0
+        self.global_grids: List[str] = []
+        self.collectives: List[str] = []
+
+    def _is_global(self, t: torch.Tensor) -> bool:
+        if t.numel() < self.numel or t.dim() < self.nd:
+            return False
+        lead = t.dim() - self.nd
+        return any(t.shape[lead + a] > lim for a, lim in self.limit.items())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.inside:
+            return out
+        ns, name = func.namespace, func._schema.name.split("::")[-1]
+        if ns in _DIST_NAMESPACES and name not in P2P_OPS:
+            self.collectives.append(f"{ns}.{name}")
+        if any(isinstance(t, torch.Tensor) and self._is_global(t)
+               for t in tree_leaves(out)):
+            self.global_grids.append(f"{ns}.{name}")
+        return out
+
+    def run_steps(self, ext: torch.Tensor, geo, nblocks: int) -> torch.Tensor:
+        eng = self.engine
+        program = eng._shard_step
+
+        def per_shard(x: torch.Tensor) -> torch.Tensor:
+            self.inside += 1
+            try:
+                return program(x)
+            finally:
+                self.inside -= 1
+        eng._shard_step = per_shard
+        try:
+            with self:
+                return eng._steps(ext, geo, nblocks)
+        finally:
+            eng._shard_step = program
+
+
+def audit_sharded(cfg: VetConfig, engine, u: torch.Tensor, nblocks: int,
+                  symbol: str) -> Tuple[List[Finding], Dict[str, int]]:
+    """Run ``nblocks`` fused steps of ``engine`` on the interior grid
+    ``u``: the exchange count per step, the step path's global grids and
+    collectives, and the result against the direct engine's ``iterate``."""
+    geo = engine._geometry(tuple(u.shape))
+    ext = engine._scatter(u[None], geo)
+    engine.transport.reset()
+    watch = _StepPath(engine, geo)
+    got = engine._assemble(watch.run_steps(ext, geo, nblocks), geo)[0]
+    naxes = len(engine.partition())
+    expected = 2 * naxes
+    per_step = engine.transport.calls / nblocks
+    counts = {"collective-permute": (int(per_step) if per_step.is_integer()
+                                     else per_step),
+              "gather-like": len(watch.global_grids) + len(watch.collectives)}
+    findings: List[Finding] = []
+
+    def flag(rule: str, message: str) -> None:
+        findings.append(Finding(rule=rule, severity=cfg.severity_of(rule),
+                                path=_SHARDED_PATH, line=0, symbol=symbol,
+                                message=message))
+    if engine.transport.calls != expected * nblocks:
+        flag("sharded-collective-budget",
+             f"expected exactly {expected} exchanges per fused step (2 per "
+             f"partitioned axis × {naxes} axes), the step path made "
+             f"{counts['collective-permute']}")
+    if counts["gather-like"]:
+        what = sorted(set(watch.global_grids)) + sorted(
+            set(watch.collectives))
+        flag("sharded-all-gather",
+             f"{counts['gather-like']} op(s) on the sharded step path "
+             f"rematerialized the global grid or ran a collective other "
+             f"than point to point ({', '.join(what)}) instead of "
+             "exchanging width-k·r halos")
+    h, k = engine.halo, engine.temporal_steps
+    want = StencilEngine(engine.spec, "direct", temporal_steps=k,
+                         device=u.device).iterate(
+        F.pad(u, (h,) * (2 * u.dim())), k * nblocks)
+    want = want[tuple(slice(h, -h) for _ in range(u.dim()))]
+    err = output_error(got, want)
+    if err > OUTPUT_TOL:
+        findings.append(_finding(
+            cfg, "launch-output-mismatch", symbol,
+            f"sharded output differs from the direct engine's by {err:.3g} "
+            f"relative (tolerance {OUTPUT_TOL})"))
+    return findings, counts
+
+
+def probe_mesh(parts: tuple, device: torch.device):
+    """A ``LocalTransport`` mesh of ``parts`` with every shard on
+    ``device``."""
+    from repro_torch.distributed.halo import grid_mesh
+    return grid_mesh(parts, devices=[device] * int(np.prod(parts)))
+
+
+def analyze_sharded(cfg: VetConfig, device: torch.device
+                    ) -> Tuple[List[Finding], Dict[str, dict]]:
+    """Certify the halo-exchange budget on the sharded step path: per fused
+    k-step exactly two exchanges per partitioned axis and nothing
+    gather-shaped, for ``step`` (one block) and ``iterate`` (two), through
+    ``cuda_sptc`` on the card and ``sptc`` on the CPU (the reference's
+    backend)."""
+    from repro_torch.distributed.halo import ShardedStencilEngine
+    findings: List[Finding] = []
+    per_probe: Dict[str, dict] = {}
+    backend = "cuda_sptc" if device.type == "cuda" else "sptc"
+    for (shape_kind, ndim, radius), parts, steps, shape in sharded_probes():
+        spec = make_stencil(shape_kind, ndim, radius, seed=7)
+        mesh_tag = "x".join(str(p) for p in parts)
+        symbol = (f"halo/{spec.name}/mesh{mesh_tag}"
+                  f"{f'/k{steps}' if steps != 1 else ''}")
+        engine = ShardedStencilEngine(spec, probe_mesh(parts, device),
+                                      backend=backend, temporal_steps=steps)
+        u = probe_input(shape, device)
+        for tag, nblocks in (("step", 1), ("iterate", 2)):
+            fs, counts = audit_sharded(cfg, engine, u, nblocks,
+                                       f"{symbol}/{tag}")
+            findings += fs
+            per_probe[f"{symbol}/{tag}"] = counts
+    return findings, per_probe
+
+
+def planted_over_exchange(spec: StencilSpec, parts: tuple,
+                          device: torch.device, **kw):
+    """A sharded engine whose transport sends every high edge twice: the
+    fault ``sharded-collective-budget`` exists to catch (the answer holds,
+    the second copy overwrites the first)."""
+    from repro_torch.distributed.halo import ShardedStencilEngine
+    from repro_torch.distributed.transport import LocalTransport
+
+    class ThirdExchange(LocalTransport):
+        def shift(self, src, dst, dim, axis, step):
+            super().shift(src, dst, dim, axis, step)
+            if step > 0:
+                super().shift(src, dst, dim, axis, step)
+
+    return ShardedStencilEngine(spec, probe_mesh(parts, device),
+                                transport=ThirdExchange(), **kw)
+
+
+def planted_global_gather(spec: StencilSpec, parts: tuple,
+                          device: torch.device, **kw):
+    """A sharded engine whose every step first concatenates all blocks
+    into the global grid, as a partitioner that fell back to an
+    all-gather would: the fault ``sharded-all-gather`` exists to catch."""
+    from repro_torch.distributed.halo import ShardedStencilEngine
+
+    class Gathering(ShardedStencilEngine):
+        def _step(self, ext, out, geo):
+            self._assemble(ext, geo)
+            super()._step(ext, out, geo)
+
+    return Gathering(spec, probe_mesh(parts, device), **kw)
+
+
 def run(cfg: VetConfig, device: Device = None
         ) -> Tuple[List[Finding], Dict[str, dict]]:
     """All launch-audit findings + the per-kernel zero-overhead verdict.
@@ -520,6 +835,10 @@ def run(cfg: VetConfig, device: Device = None
     findings += fused_findings
     verdict[FUSED_KERNEL] = {"probes": fused_probes,
                              "certified": not fused_findings}
+    sharded_findings, sharded_ran = analyze_sharded(cfg, device)
+    findings += sharded_findings
+    verdict["sharded_halo"] = {"probes": sharded_ran,
+                               "certified": not sharded_findings}
     spec = make_stencil("star", 2, 1, seed=7)
     rebuilt = {b: BACKEND_KERNEL.get(b, b) for b in cfg.lowering_backends}
     rebuilt["cuda_sptc"] = FUSED_KERNEL

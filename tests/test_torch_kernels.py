@@ -407,7 +407,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.sptc_spmm", "repro_torch.kernels.conv1d",
-    "repro_torch.models", "repro_torch.serving", "repro_torch.launch.serve"])
+    "repro_torch.models", "repro_torch.serving", "repro_torch.launch.serve",
+    "repro_torch.distributed"])
 def test_port_module_imports_alone(module):
     """Each package imports first in a fresh interpreter (``core``'s
     package imports the engine, which imports ``kernels.sptc_spmm``)."""

@@ -18,6 +18,7 @@ from repro.serving import StencilDriver as RefDriver
 from repro.tuner import PlanCache as RefCache
 from repro_torch.core.convert import spec_from_arrays
 from repro_torch.core.engine import StencilEngine
+from repro_torch.distributed import grid_mesh
 from repro_torch.serving import BatchPolicy, QueueFullError, StencilDriver
 from repro_torch.tuner import PlanCache, batch_group_key, tuned_apply
 
@@ -121,8 +122,15 @@ def test_submit_validates_ndim_halo_and_steps():
             drv.submit(spec, torch.zeros(8, 8), temporal_steps=0)
     with pytest.raises(ValueError, match="padding"):
         StencilDriver(padding="ragged", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a partitioned mesh runs sharded: it needs its shards' devices, and
+    # the driver's device among them
+    with pytest.raises(ValueError, match="needs 8 devices"):
         StencilDriver(mesh=(4, 2), device=CPU)
+    with pytest.raises(ValueError, match="driver's device"):
+        StencilDriver(mesh=grid_mesh((4, 2), devices=["meta"] * 8),
+                      device=CPU)
+    StencilDriver(mesh=grid_mesh((4, 2), devices=[CPU] * 8), device=CPU,
+                  autostart=False).close()
 
 
 def test_temporal_jobs_bucket_and_run_separately():

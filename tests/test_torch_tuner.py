@@ -121,9 +121,23 @@ def test_plan_key_decode_matches_reference_on_old_and_odd_keys():
 
 
 def test_plan_key_takes_the_device_and_refuses_a_mesh(monkeypatch):
-    _, spec = _specs("star", 2, 1, seed=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tuner.plan_key(spec, (20, 20), torch.float32, CPU, mesh=(4, 2))
+    # a partitioned mesh keys the sharded path as the reference keys it; a
+    # malformed mesh is refused, as the reference refuses it
+    from repro_torch.distributed import grid_mesh
+    ref, spec = _specs("star", 2, 1, seed=0)
+    want = rtuner.plan_key(ref, (20, 20), jnp.float32, mesh=(4, 2)).encode()
+    for mesh in ((4, 2), "4x2", grid_mesh((4, 2), devices=[CPU] * 8)):
+        key = tuner.plan_key(spec, (20, 20), torch.float32, CPU, mesh=mesh)
+        assert key.mesh == "4x2"
+        got, ref_fields = _fields(key.encode()), _fields(want)
+        for f in ("dev", "univ"):
+            got.pop(f), ref_fields.pop(f)
+        assert got == ref_fields
+    for bad, err in (((0, 2), ValueError), (object(), TypeError)):
+        with pytest.raises(err):
+            tuner.plan_key(spec, (20, 20), torch.float32, CPU, mesh=bad)
+        with pytest.raises(err):
+            rplan.mesh_desc(bad)
     assert tuner.plan_key(spec, (20, 20), torch.float32, CPU,
                           mesh=(1, 1)).mesh == "1"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -19,10 +19,12 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from repro.vet import code as ref_code
 from repro.vet import invariants as ref_invariants
@@ -349,10 +351,12 @@ def test_shipped_engines_certify_zero_overhead(port_run):
     ref_fs, _ = ref_lowering.run(RefVetConfig())
     findings, verdict = port_run
     assert ref_fs == [] and findings == [], [f.format() for f in findings]
-    assert set(verdict) == {"stencil_gemm", "sptc_spmm", "sptc_spmm_fused"}
+    assert set(verdict) == {"stencil_gemm", "sptc_spmm", "sptc_spmm_fused",
+                            "sharded_halo"}
     for kernel, v in verdict.items():
         assert v["certified"], (kernel, v)
-        assert v["rebuild"] == {"same_sequence": True, "uploads": 0}
+        if kernel != "sharded_halo":
+            assert v["rebuild"] == {"same_sequence": True, "uploads": 0}
     for sym, c in verdict["sptc_spmm"]["probes"].items():
         assert c["gathers"] <= c["products"], (sym, c)  # the window read
     gemm = {k.split("/", 1)[1]: v
@@ -435,6 +439,52 @@ def test_card_audit_walks_into_regions():
     assert cpu.counts["gathers"] == 0 and card.counts["gathers"] == 1
     assert cpu.regions == card.regions == {"sptc_spmm_fused": 1}
     assert card.counts["programs"] == 1 and card.counts["kernels"] == 0
+
+
+def test_card_audit_skips_the_trace_markers():
+    # a card trace opens with spin kernels that mark it complete; they are
+    # no work of the call
+    def dev(name, t):
+        return SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                               is_user_annotation=False,
+                               time_range=SimpleNamespace(start=t, end=t + 5))
+    events = [dev("at::cuda::(anonymous namespace)::spin_kernel(long)", 0),
+              dev("at::cuda::(anonymous namespace)::spin_kernel(long)", 10),
+              dev("void spider::sptc_mma_kernel<float, 0, false, 2>", 20),
+              dev("Memset (Device)", 30)]
+    a = lowering._summarize(events, on_card=True)
+    assert a.counts["kernels"] == 1 and a.counts["device_ops"] == 1
+    assert a.device_ms == {"kernel": 0.005, "outside": 0.005}
+    assert not any(lowering.is_marker(SimpleNamespace(name=n))
+                   for n in a.sequence)
+
+
+def _card_counts(**kw):
+    counts = dict.fromkeys(lowering.COUNT_KEYS, 0)
+    counts.update(kernels=0, device_ops=0)
+    counts.update(kw)
+    return counts
+
+
+def test_outside_device_ops_rule_on_synthetic_audits():
+    cfg = VetConfig()
+    rules = lambda c: [f.rule for f in lowering.check_device_ops(  # noqa: E731
+        cfg, "s", c)]
+    # the card's counts of cuda_sptc star-2d1r 4 = 1 + 2 + 1 and box-2d1r
+    # 7 = 3 + 3 + 1, cuda_gemm star-2d1r 9 = 4 copies + 2 adds + 3 fills
+    for copies, adds, fills, ops, kernels in ((1, 2, 1, 4, 2), (3, 3, 1, 7, 3),
+                                              (4, 2, 3, 9, 2), (0, 0, 0, 0, 1)):
+        ok = _card_counts(copies=copies, adds=adds, fills=fills,
+                          device_ops=ops, programs=kernels, kernels=kernels)
+        assert rules(ok) == []
+        audit = lowering.CallAudit(counts=ok, regions={}, sequence=())
+        assert rules(audit.counts) == []
+        # a memset no torch op shows; a kernel launched outside any region
+        assert rules(dict(ok, device_ops=ops + 1)) == ["outside-device-ops"]
+        assert rules(dict(ok, kernels=kernels + 1)) == ["outside-device-ops"]
+    # a CPU audit has no device ops to hold
+    assert rules(dict.fromkeys(lowering.COUNT_KEYS, 3)) == []
+    assert cfg.severity_of("outside-device-ops") == "error"
 
 
 @pytest.mark.parametrize("shape_kind", ["star", "box"])
@@ -552,7 +602,8 @@ def test_cli_json_carries_the_verdict(capsys):
     report = json.loads(capsys.readouterr().out)
     assert rc == 0 and report["findings"] == []
     assert set(report["verdict"]) == {"stencil_gemm", "sptc_spmm",
-                                      "sptc_spmm_fused"}
+                                      "sptc_spmm_fused", "sharded_halo"}
+    assert report["verdict"]["sharded_halo"]["certified"]
 
 
 def test_cli_write_baseline_then_pass(tmp_path, capsys):

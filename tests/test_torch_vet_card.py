@@ -4,6 +4,8 @@ elsewhere).
 Imports nothing of JAX, so it collects where JAX is not installed:
 ``python -m pytest -q -m cuda tests/test_torch_vet_card.py``.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -66,3 +68,66 @@ def test_counts_do_not_change_with_the_probe_size(cuda_device, backend):
         assert audits[0].counts == audits[1].counts, (spec.name, audits)
         assert audits[1].counts["kernels"] == len(eng.plan_ir.decompose.ops)
         assert 0 < audits[1].kernel_share <= 1
+
+
+def _cudart():
+    """The CUDA runtime this process already loaded (torch's), else the
+    toolkit's."""
+    for name in ("libcudart.so.12", "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            return ctypes.CDLL(name)
+        except OSError:
+            continue
+    pytest.skip("no CUDA runtime library to call cudaMemsetAsync from")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_kind", ["star", "box"])
+def test_outside_device_ops_flags_a_memset_and_a_raw_launch(cuda_device,
+                                                            shape_kind):
+    spec = make_stencil(shape_kind, 2, 1, seed=7)
+    x = lowering.probe_input((22, 22), cuda_device)
+    eng = StencilEngine(spec, "cuda_sptc", device=cuda_device)
+    fs, got, dense = lowering.audit_fused(VetConfig(), eng, spec, x, "ok")
+    assert fs == [], [f.format() for f in fs]
+    assert lowering.check_device_ops(VetConfig(), "gemm", dense.counts) == []
+    # star-2d1r 4 = 1 + 2 + 1, box-2d1r 7 = 3 + 3 + 1
+    c = got.counts
+    assert c["device_ops"] == c["copies"] + c["adds"] + c["fills"], c
+
+    cudart = _cudart()
+    scratch = torch.empty(1 << 16, device=cuda_device)
+
+    def memset(x):
+        y = eng(x)
+        status = cudart.cudaMemsetAsync(
+            ctypes.c_void_p(scratch.data_ptr()), 0,
+            ctypes.c_size_t(scratch.numel() * 4),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert status == 0, status
+        return y
+
+    for label, fn in (("memset", memset),
+                      ("launch", lowering.planted_outside_launch(
+                          spec, cuda_device))):
+        fs, got, _ = lowering.audit_fused(VetConfig(), fn, spec, x, label)
+        rules = [f.rule for f in fs]
+        assert "outside-device-ops" in rules, (label, rules, got.counts)
+        assert "launch-output-mismatch" not in rules
+    # the raw launch is also a region kernel no region asked for
+    assert rules == ["pallas-fused-program", "outside-device-ops"]
+
+
+@pytest.mark.cuda
+def test_audit_traces_keep_every_device_op(cuda_device):
+    # a bare trace loses the device ops at its head now and then; the
+    # audit's traces open with markers and are retaken when they lost them
+    eng = StencilEngine(make_stencil("box", 2, 1, seed=7), "cuda_sptc",
+                        device=cuda_device)
+    x = lowering.probe_input((18, 18), cuda_device)
+    want = lowering.audit_call(eng, x).counts
+    assert want["programs"] == want["kernels"] == 3, want
+    for _ in range(100):
+        a = lowering.profile_call(eng, x)
+        assert a.counts == want, (a.counts, want)
+        assert not any(lowering.MARKER_KERNEL in s for s in a.sequence)
