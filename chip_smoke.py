@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives six
+each kernel against its plain torch version on the card, and drives seven
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -33,7 +33,13 @@ after:
 * serving ``mamba2-2.7b`` at full width and depth (64 layers, bf16, random
   weights from a seed) through ``GenerateDriver``: 8 requests of 512-token
   prompts, 32 new tokens each, with the causal-conv1d kernel in every
-  layer of every prefill.
+  layer of every prefill;
+* serving the hybrid ``zamba2-2.7b`` the same way (54 Mamba2 layers in 9
+  groups of 6, one weight-shared attention/MLP block after each group,
+  bf16, 2,422,670,240 random parameters): the conv kernel in all 54
+  layers of every prefill, the shared block's K/V in ring caches; before
+  it, the model cut to 12 layers holds the kernel against its plain
+  version and prefill-then-decode against forward, with the ring wrapped.
 
 It times every kernel with CUDA events at the paths' shapes and prints the
 card, a ``kernels`` JSON line and a final contract line.  Every phase
@@ -60,7 +66,7 @@ N_1D = 104_857_600                   # 1-D points, = 10240 * 10240
 N_2D = 10_240                        # 2-D grid edge (benchmarks/fig9_throughput.py)
 TOL = 3e-5                           # f32: |got - want| <= TOL * (1 + |want|)
 TOL_BF16 = 1e-2                      # bf16 storage: one output rounding step
-#: the model cut to 2 layers, logits with the conv kernel against the same
+#: the model cut (``LM_CUT``), logits with the conv kernel against the same
 #: model whose conv is the kernel's plain version (f32 sums in the same tap
 #: order, one rounding), relative to 1 + |plain|.  In f32 the kernel's fused
 #: multiply-adds round the products differently (a few ulps); a product of
@@ -68,10 +74,29 @@ TOL_BF16 = 1e-2                      # bf16 storage: one output rounding step
 #: and the f32 limit holds there too
 LM_TOL_F32 = 1e-4
 LM_TOL_BF16 = 1e-4
-#: the same logits against use_kernels=False, whose conv (the reference's
-#: oracle) rounds to bf16 after every tap: a wider limit in bf16
-LM_TOL_OFF = {"float32": 1e-4, "bfloat16": 0.25}
 ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "zamba2-2.7b"
+#: the same logits against use_kernels=False, whose conv (the reference's
+#: oracle) rounds to bf16 after every tap: a wider limit in bf16.  Through
+#: the hybrid cut's twelve layers and two attention blocks those per-tap
+#: roundings compound with depth, so there the bf16 comparison is
+#: information only (None): the check that holds the kernel is the one
+#: against its plain version
+LM_TOL_OFF = {ARCH: {"float32": 1e-4, "bfloat16": 0.25},
+              HYBRID_ARCH: {"float32": 1e-4, "bfloat16": None}}
+#: each served model's parameter count, as the reference counts it
+#: (``jax.eval_shape`` of its ``init_params`` gives the same)
+N_PARAMS = {ARCH: 2_702_579_200, HYBRID_ARCH: 2_422_670_240}
+#: the layers of each phase's cut model (Zamba2: two groups of six, so the
+#: shared block is applied twice)
+LM_CUT = {ARCH: 2, HYBRID_ARCH: 12}
+#: prefill-then-decode against forward in float32: the reference's own
+#: hybrid tolerance (tests/test_arch_smoke.py:83), relative to 1 + |want|
+RING_TOL = 2e-2
+RING_PROMPT, RING_WINDOW = 100, 48
+#: each model's conv input: (channels d_inner + 2 * state, the width of the
+#: input projection it is a column slice of)
+CONV_VIEWS = {ARCH: (5376, 10576), HYBRID_ARCH: (5248, 10448)}
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH = 8, 512, 32, 4
 OUT_DIR = ROOT / "chiprun_out"
 #: GPU clock cycles of the spin kernel that holds the stream while the host
@@ -188,16 +213,22 @@ def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
             "launch_ms": _time_ms(kern, reps, hold=False)}
 
 
-def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
+def _profile(fn, label: str, smi: str, top: int = 8,
+             regions: tuple = ()) -> dict:
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``),
     and the share of the call's wall time the device spent idle.
 
+    The kernel wrappers' regions (``KERNEL_REGIONS``) and ``regions`` also
+    appear as device-side annotations spanning their kernels; those rows
+    are not kernels and are left out of the busy time.  ``by_region`` holds
+    the device time of the kernels launched inside each of ``regions``.
     A measurement only: where the profiler records no device time here,
     that is printed and the run goes on.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.common import KERNEL_REGIONS
     fn()
     torch.cuda.synchronize()
     try:
@@ -210,16 +241,22 @@ def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
         events = prof.key_averages()
     except RuntimeError as exc:            # the profiler, not the work
         print(f"profile {label}: torch.profiler failed ({exc})")
-        return {"wall_ms": None, "device_ms": None, "rows": []}
+        return {"wall_ms": None, "device_ms": None, "rows": [],
+                "by_region": {}}
+    marks = set(KERNEL_REGIONS) | set(regions)
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in events                # the kernels, not the ops
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and e.key not in marks]
     rows.sort(reverse=True)
+    by_region = {e.key: e.device_time_total / 1e3 for e in events
+                 if e.device_type == DeviceType.CPU and e.key in regions}
     busy_ms = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time")
-        return {"wall_ms": wall_ms, "device_ms": None, "rows": []}
+        return {"wall_ms": wall_ms, "device_ms": None, "rows": [],
+                "by_region": {}}
     print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
           f"{busy_ms:.2f} ms in {launches} kernels, idle share "
           f"{100 * max(0.0, 1 - busy_ms / wall_ms):.0f}% | card {smi}")
@@ -228,12 +265,77 @@ def _profile(fn, label: str, smi: str, top: int = 8) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": launches,
             "top": [{"ms": ms, "count": n, "name": key}
                     for ms, n, key in rows[:top]],
-            "rows": rows}
+            "rows": rows, "by_region": by_region}
 
 
-def _phase_lm(dev, smi: str) -> dict:
-    """Serve mamba2-2.7b at full width and depth through GenerateDriver,
-    check it, and time prefill and decode."""
+@contextlib.contextmanager
+def _model_regions():
+    """Open a profiler region around the LM's attention core (prefill's
+    ``attention_core``, decode's ``decode_attention``: scores, softmax and
+    PV, what a fused attention kernel would replace) and around the decode
+    step's ring write (``write_token``), so ``_profile`` can split their
+    device time out."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serving import cache
+    targets = ((layers, "attention_core", "attention"),
+               (layers, "decode_attention", "attention"),
+               (cache, "write_token", "ring_write"))
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrap(fn, name):
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+    for mod, attr, name in targets:
+        setattr(mod, attr, wrap(getattr(mod, attr), name))
+    try:
+        yield ("attention", "ring_write")
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
+    """Prefill S tokens, then decode token S, against ``forward``'s logits
+    at position S (float32, within ``RING_TOL`` relative to 1 + |forward|):
+    once with a ring as long as the cache, once with sliding_window =
+    decode_window = ``RING_WINDOW`` < S, where the ring wraps (the forward
+    masks to the same window, so both see the same keys)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    s = toks.shape[1] - 1
+    out = {}
+    for window in (None, RING_WINDOW):
+        c = cfg if window is None else cfg.scaled(sliding_window=window,
+                                                  decode_window=window)
+        full = M.forward(params, c, toks)[0][:, s]
+        _, cc = E.prefill(params, c, toks[:, :s], s + 16)
+        ring = int(cc["kv_pos"].shape[0])
+        step, cc2 = E.decode_step(params, c, cc, toks[:, s:])
+        if int(cc2["pos"]) != s + 1:
+            raise AssertionError(f"decode left pos {int(cc2['pos'])}")
+        row = {"window": window, "ring": ring, "wraps": s > ring,
+               "max_abs_err": _err(step[:, 0], full, RING_TOL),
+               "rel_err": _rel(step[:, 0], full), "tol": RING_TOL}
+        out["wrapping" if window else "full"] = row
+        print(f"phase {phase} {cfg.name} cut to {cfg.n_layers} layers, "
+              f"float32: prefill {s} tokens then decode token {s} against "
+              f"forward at position {s}, ring {ring} slots"
+              f"{' (wrapped)' if row['wraps'] else ''}"
+              f"{f', window {window}' if window else ''}: max rel err "
+              f"{row['rel_err']:.3g} (tol {RING_TOL}) | card {smi}")
+    if not out["wrapping"]["wraps"]:
+        raise AssertionError("the ring check did not wrap the ring")
+    return out
+
+
+def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
+    """Serve ``arch`` at full width and depth through GenerateDriver, check
+    it, and time and profile prefill and decode.  First the config cut to
+    ``cut`` layers holds the conv kernel against its plain version in the
+    model, and (hybrid) prefill-then-decode against forward."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.conv1d import ops as conv_ops
@@ -245,18 +347,22 @@ def _phase_lm(dev, smi: str) -> dict:
 
     rng = np.random.default_rng(2)
     out: dict = {}
-    # the config cut to 2 layers: the kernel against its plain version in
-    # the same model, against use_kernels=False, and a planted fault (the
-    # plain conv with its taps shifted by one) that the first check must fail
+    tag = f"phase {phase} {arch}"
+    # the config cut to `cut` layers: the kernel against its plain version
+    # in the same model, against use_kernels=False, and a planted fault
+    # (the plain conv with its taps shifted by one) that the first check
+    # must fail
     for dt, tol in (("float32", LM_TOL_F32), ("bfloat16", LM_TOL_BF16)):
-        cfg2 = get_config(ARCH).scaled(n_layers=2, dtype=dt, use_kernels=True)
+        cfg2 = get_config(arch).scaled(n_layers=cut, dtype=dt,
+                                       use_kernels=True)
         p2 = M.init_params(cfg2, 1, device=dev)
         toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (2, 64)),
                                device=dev)
         conv_ops.conv1d_causal.launches = 0
         on = M.forward(p2, cfg2, toks)[0]
         if conv_ops.conv1d_causal.launches != cfg2.n_layers:
-            raise AssertionError("the 2-layer model did not run the kernel")
+            raise AssertionError(f"the {cut}-layer model launched the kernel "
+                                 f"{conv_ops.conv1d_causal.launches} times")
         with _model_conv(conv1d_causal_plain):
             plain = M.forward(p2, cfg2, toks)[0]
         with _model_conv(lambda x, w: conv1d_causal_plain(
@@ -269,32 +375,43 @@ def _phase_lm(dev, smi: str) -> dict:
                "rel_err_vs_off": _rel(on, off),
                "max_abs_err_vs_off": float((on - off).abs().max()),
                "planted_fault_rel_err": _rel(fault, plain),
-               "tol": tol, "tol_off": LM_TOL_OFF[dt]}
-        out[f"two_layer_{dt}"] = row
-        print(f"phase lm {ARCH} cut to 2 layers, {dt}: prefill logits, "
-              f"kernel vs its plain version in the model: max rel err "
+               "tol": tol, "tol_off": LM_TOL_OFF[arch][dt],
+               "conv1d_launches": cfg2.n_layers}
+        out[f"cut_{dt}"] = row
+        print(f"{tag} cut to {cut} layers, {dt}: prefill logits, kernel vs "
+              f"its plain version in the model: max rel err "
               f"{row['rel_err_vs_plain']:.3g} (max |err| "
               f"{row['max_abs_err_vs_plain']:.3g}, mean "
               f"{row['mean_abs_err_vs_plain']:.3g}; tol {tol}); vs "
               f"use_kernels=False {row['rel_err_vs_off']:.3g} (tol "
-              f"{LM_TOL_OFF[dt]}); planted fault (taps shifted by one) vs "
-              f"plain {row['planted_fault_rel_err']:.3g}")
+              f"{LM_TOL_OFF[arch][dt] or 'none: information only'}); "
+              f"planted fault (taps shifted by one) vs "
+              f"plain {row['planted_fault_rel_err']:.3g}; conv1d launches "
+              f"{cfg2.n_layers} | card {smi}")
+        tol_off = LM_TOL_OFF[arch][dt]
         if row["rel_err_vs_plain"] > tol or \
-                row["rel_err_vs_off"] > LM_TOL_OFF[dt]:
+                (tol_off is not None and row["rel_err_vs_off"] > tol_off):
             raise AssertionError(f"{dt}: kernel model outside its limits")
         if row["planted_fault_rel_err"] <= tol:
             raise AssertionError(f"{dt}: a planted fault passes tol {tol}")
+        if cfg2.family == "hybrid" and dt == "float32":
+            ring_toks = torch.as_tensor(
+                rng.integers(0, cfg2.vocab, (2, RING_PROMPT + 1)), device=dev)
+            out["ring"] = _ring_check(p2, cfg2, ring_toks, phase, smi)
         del p2, on, plain, fault, off
     torch.cuda.empty_cache()
 
-    cfg = get_config(ARCH).scaled(use_kernels=True)
+    cfg = get_config(arch).scaled(use_kernels=True)
     t0 = time.perf_counter()
     params = M.init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     n_params = count_params(params)
-    print(f"phase lm {ARCH}: {n_params:,} parameters ({cfg.dtype}, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}) drawn on the card "
-          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"{tag}: {n_params:,} parameters ({cfg.dtype}, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != N_PARAMS[arch]:
+        raise AssertionError(f"{n_params:,} parameters, want "
+                             f"{N_PARAMS[arch]:,}")
     prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, PROMPT_LEN),
                                dtype=torch.int32) for _ in range(N_REQUESTS)]
     cache_len = PROMPT_LEN + NEW_TOKENS
@@ -319,16 +436,16 @@ def _phase_lm(dev, smi: str) -> dict:
             launches != cfg.n_layers * batches:
         raise AssertionError(f"{batches} batches, {launches} conv1d launches "
                              f"(want {cfg.n_layers} per prefill)")
-    print(f"phase lm {ARCH} main path: served {N_REQUESTS} requests of "
-          f"{PROMPT_LEN} tokens, {NEW_TOKENS} new tokens each, in "
-          f"{wall:.2f} s ({N_REQUESTS * NEW_TOKENS / wall:.1f} new tok/s), "
-          f"batches {batches}, occupancy {stats['batch_occupancy']}, p50 "
+    print(f"{tag} main path: served {N_REQUESTS} requests of {PROMPT_LEN} "
+          f"tokens, {NEW_TOKENS} new tokens each, in {wall:.2f} s "
+          f"({N_REQUESTS * NEW_TOKENS / wall:.1f} new tok/s), batches "
+          f"{batches}, occupancy {stats['batch_occupancy']}, p50 "
           f"{stats['latency']['p50_ms']:.0f} ms, p99 "
           f"{stats['latency']['p99_ms']:.0f} ms; conv1d_causal launches "
-          f"{launches} = {cfg.n_layers} x {batches} prefills")
+          f"{launches} = {cfg.n_layers} x {batches} prefills | card {smi}")
 
     # the first batch again: finite logits, the served first tokens, and
-    # the full depth with the plain conv (for information)
+    # the full depth with the plain conv
     batch0 = torch.stack(prompts[:MAX_BATCH]).to(dev)
     logits, cc = E.prefill(params, cfg, batch0, cache_len)
     if tuple(logits.shape) != (MAX_BATCH, PROMPT_LEN, cfg.vocab) or \
@@ -347,11 +464,12 @@ def _phase_lm(dev, smi: str) -> dict:
     full_diff = float((plain - logits).abs().max())
     logit_max = float(plain.abs().max())
     del plain
-    print(f"phase lm {ARCH}: prefill logits finite, served first tokens = "
-          f"argmax; full depth, kernel vs its plain version in the model max "
-          f"|logit diff| {full_err:.3g} (tol {LM_TOL_BF16}); use_kernels on "
-          f"vs off max |logit diff| {full_diff:.3g} of max |logit| "
-          f"{logit_max:.3g} (information only)")
+    print(f"{tag}: prefill logits finite float32, served first tokens = "
+          f"argmax {served.tolist()}; full depth, kernel vs its plain "
+          f"version in the model max |logit diff| {full_err:.3g} (tol "
+          f"{LM_TOL_BF16}); use_kernels on vs off max |logit diff| "
+          f"{full_diff:.3g} of max |logit| {logit_max:.3g} (information "
+          f"only)")
     out["full_depth_bf16"] = {"max_abs_err_vs_plain": full_err,
                               "max_abs_logit_diff": full_diff,
                               "max_abs_logit": logit_max}
@@ -365,8 +483,8 @@ def _phase_lm(dev, smi: str) -> dict:
                              "max_abs_logit": float(off.abs().max())}
     del p32, on, off
     torch.cuda.empty_cache()
-    print(f"phase lm {ARCH}: full depth in float32 (1 x 128 tokens), use_"
-          f"kernels on vs off max |logit diff| "
+    print(f"{tag}: full depth in float32 (1 x 128 tokens), use_kernels on "
+          f"vs off max |logit diff| "
           f"{out['full_depth_f32']['max_abs_logit_diff']:.3g} of max |logit| "
           f"{out['full_depth_f32']['max_abs_logit']:.3g} (information only)")
 
@@ -390,31 +508,52 @@ def _phase_lm(dev, smi: str) -> dict:
         tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
-    print(f"timing {ARCH} prefill {MAX_BATCH} x {PROMPT_LEN}: {prefill_ms:.2f} "
-          f"ms ({MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f} tok/s); "
-          f"decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | card {smi}")
-    prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
-                    f"prefill {MAX_BATCH} x {PROMPT_LEN}", smi)
+    print(f"timing {arch} prefill {MAX_BATCH} x {PROMPT_LEN}: "
+          f"{prefill_ms:.2f} ms ({MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f}"
+          f" tok/s); decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | "
+          f"card {smi}")
+    with _model_regions() as regions:
+        prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
+                        f"{arch} prefill {MAX_BATCH} x {PROMPT_LEN}", smi,
+                        regions=regions)
+        dec = _profile(lambda: E.decode_step(params, cfg, cc, tok),
+                       f"{arch} decode step at batch {MAX_BATCH}", smi,
+                       regions=regions)
     # the conv kernel's device time inside that prefill, by kernel name
     conv = [(ms, n) for ms, n, key in prof.pop("rows")
             if "conv1d_causal_kernel" in key]
+    dec.pop("rows")
     if conv and prof["device_ms"]:
         c_ms, c_n = sum(r[0] for r in conv), sum(r[1] for r in conv)
         out["conv_in_prefill"] = {
             "ms": c_ms, "launches": c_n,
             "share_of_device": c_ms / prof["device_ms"],
             "share_of_wall": c_ms / prof["wall_ms"]}
-        print(f"phase lm {ARCH}: conv1d_causal_kernel in the profiled "
-              f"prefill: {c_ms:.3f} ms in {c_n} launches, "
+        print(f"{tag}: conv1d_causal_kernel in the profiled prefill: "
+              f"{c_ms:.3f} ms in {c_n} launches, "
               f"{100 * c_ms / prof['device_ms']:.2f}% of device time, "
               f"{100 * c_ms / prof['wall_ms']:.2f}% of the wall | card {smi}")
     else:
         out["conv_in_prefill"] = None
-        print(f"phase lm {ARCH}: conv share of prefill not measured (the "
-              f"profile holds no conv1d_causal_kernel row)")
-    dec = _profile(lambda: E.decode_step(params, cfg, cc, tok),
-                   f"decode step at batch {MAX_BATCH}", smi)
-    dec.pop("rows")
+        print(f"{tag}: conv share of prefill not measured (the profile "
+              f"holds no conv1d_causal_kernel row)")
+    if cfg.family == "hybrid":
+        # prefill writes no ring slot: its K/V is packed once
+        for name, pr, regs in (("prefill", prof, ("attention",)),
+                               ("decode step", dec, regions)):
+            for reg in regs:
+                ms = pr["by_region"].get(reg)
+                if ms is None or not pr["device_ms"]:
+                    print(f"{tag}: {reg} share of the {name} not measured "
+                          f"(no device time under its region)")
+                    continue
+                out[f"{reg}_in_{name.split()[0]}"] = {
+                    "ms": ms, "share_of_device": ms / pr["device_ms"],
+                    "share_of_wall": ms / pr["wall_ms"]}
+                print(f"{tag}: {reg} in the profiled {name}: {ms:.3f} ms, "
+                      f"{100 * ms / pr['device_ms']:.2f}% of device time, "
+                      f"{100 * ms / pr['wall_ms']:.2f}% of the wall | card "
+                      f"{smi}")
     out["profile"] = {"prefill": prof, "decode_step": dec}
     out.update({"params": n_params, "serve_wall_s": wall, "batches": batches,
                 "conv1d_launches": launches, "metrics": stats,
@@ -1394,6 +1533,19 @@ def main() -> int:
                         worst["conv1d"] = max(worst["conv1d"], _err(
                             got, conv1d_causal_plain(x, w), tol))
                         cases["conv1d"] += 1
+    # the models' own views: xbc, a column slice at offset d_inner = 5120 of
+    # the input projection, Mamba2's (5376 of 10576) and Zamba2's (5248 of
+    # 10448)
+    for d, width in CONV_VIEWS.values():
+        for b, t in ((1, 3), (3, 257), (4, 512)):
+            for dt in (f32, torch.bfloat16):
+                w = randn(4, d, dtype=dt, seed=d)
+                x = randn(b, t, width, dtype=dt, seed=b + t)[:, :, 5120:5120 + d]
+                tol = TOL if dt == f32 else TOL_BF16
+                worst["conv1d"] = max(worst["conv1d"], _err(
+                    conv_ops.conv1d_causal(x, w), conv1d_causal_plain(x, w),
+                    tol))
+                cases["conv1d"] += 1
     torch.cuda.synchronize()
     for k in worst:
         print(f"phase 2 {k}: {cases[k]} small cases, max |err| vs plain "
@@ -1657,8 +1809,11 @@ def main() -> int:
     # conv1d at the serve shape and at the prefill_32k sequence length, x a
     # column slice of the (B, T, 2*d_inner + 2*state + heads) projection
     conv_rows = {}
-    d, proj_w, k = 5376, 10576, 4
-    for label, (b, t) in (("serve", (4, 512)), ("prefill_32k", (4, 32768))):
+    k = 4
+    for label, arch, (b, t) in (("serve", ARCH, (4, 512)),
+                                ("prefill_32k", ARCH, (4, 32768)),
+                                ("serve_hybrid", HYBRID_ARCH, (4, 512))):
+        d, proj_w = CONV_VIEWS[arch]
         proj = randn(b, t, proj_w, dtype=torch.bfloat16, seed=t)
         xc = proj[:, :, 5120:5120 + d]
         wc = randn(k, d, dtype=torch.bfloat16, seed=k)
@@ -1672,7 +1827,7 @@ def main() -> int:
             shape=f"x {(b, t, d)} bf16 (column slice of {(b, t, proj_w)}), "
                   f"w {(k, d)}", reps=20 if t <= 512 else 5)
         conv_rows[label] = row
-        print(f"timing conv1d_causal {label}: kernel_ms {row['ms']:.4f} (with "
+        print(f"timing conv1d_causal {label} ({arch}): kernel_ms {row['ms']:.4f} (with "
               f"the host's launch {row['launch_ms']:.4f}) plain_ms {row['plain_ms']:.4f} library_ms(F.conv1d) "
               f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
               f"({row['bound_by']}) | {row['shape']} | card {smi}")
@@ -1701,9 +1856,14 @@ def main() -> int:
     launches["sptc_spmm"] += vet["launches"]["sptc_spmm_windows"]
 
     # -- phase lm: mamba2-2.7b served at full width and depth ----------------
-    lm = _phase_lm(dev, smi)
-    launches["conv1d_causal"] = lm["conv1d_launches"]
+    lm = _phase_lm(dev, smi, ARCH, "lm", LM_CUT[ARCH])
     results["lm"] = lm
+
+    # -- phase lm-hybrid: zamba2-2.7b served at full width and depth ---------
+    hybrid = _phase_lm(dev, smi, HYBRID_ARCH, "lm-hybrid", LM_CUT[HYBRID_ARCH])
+    results["lm_hybrid"] = hybrid
+    launches["conv1d_causal"] = lm["conv1d_launches"] + \
+        hybrid["conv1d_launches"]
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -22,6 +23,6 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(
             f"arch {arch!r} is not ported to repro_torch yet (ported: "
             f"{ARCHS}); the other families are queued in ROADMAP.md, "
-            f"Queue 1 item 10")
+            f"Queue 1")
     mod = importlib.import_module(_MODULES[arch])
     return mod.smoke() if smoke else mod.config()

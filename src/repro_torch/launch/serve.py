@@ -1,8 +1,11 @@
 """Serving launcher: continuous-batched generate over the scheduler.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         [--smoke] [--device cpu] --requests 8 --max-batch 4 \\
         --prompt-len 32 --new-tokens 32
+
+``--arch`` is any architecture of ``repro_torch.configs.ARCHS``
+(``mamba2-2.7b``, ``zamba2-2.7b``).
 
 The counterpart of ``repro/launch/serve.py``, with the same flags and
 printout plus ``--device`` (default: the card; ``cpu`` runs the kernels'

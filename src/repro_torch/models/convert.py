@@ -3,7 +3,8 @@
 The JAX reference and this port share no objects.  A caller (or a test)
 that holds a reference config passes ``dataclasses.asdict(cfg)``, and one
 that holds reference parameters passes them as NumPy arrays
-(every leaf as ``np.asarray``, stacked ``(L, ...)`` layer leaves);
+(every leaf as ``np.asarray``, stacked ``(L, ...)`` layer leaves, or
+``(G, E, ...)`` group leaves);
 these helpers rebuild the port's objects, so both packages compute the
 same thing from the same weights.
 """
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.model import Params, check_ported
+from repro_torch.models.model import Params, check_ported, n_groups
 
 #: reference field name -> port field name
 RENAMED = {"use_pallas": "use_kernels"}
@@ -54,23 +55,35 @@ def _tree(tree: Mapping[str, Any], dtype, device) -> Dict[str, Any]:
             else _tensor(v, dtype, device) for k, v in tree.items()}
 
 
+def _unstack(tree: Dict[str, Any], n: int) -> list:
+    """A tree of ``(n, ...)`` leaves -> ``n`` trees of its slices."""
+    def one(sub, i):
+        return {k: one(v, i) if isinstance(v, dict) else v[i]
+                for k, v in sub.items()}
+    return [one(tree, i) for i in range(n)]
+
+
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device: Device = None) -> Params:
     """The port's parameters from the reference's parameter tree.
 
-    Stacked ``(L, ...)`` layer leaves are split into the port's list of
-    per-layer dicts; every tensor is cast to ``cfg.dtype`` (as the
-    reference casts them at use) on ``device`` (``None``: the card).
+    Stacked ``(L, ...)`` ``layers`` leaves are split into the port's list
+    of per-layer dicts, ``(G, E, ...)`` ``groups`` leaves into a list of G
+    lists of E; every other subtree (a hybrid model's ONE ``shared`` block)
+    is carried leaf for leaf.  Every tensor is cast to ``cfg.dtype`` (as
+    the reference casts them at use) on ``device`` (``None``: the card).
     """
     check_ported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
-    out = _tree({k: v for k, v in tree.items() if k != "layers"}, dtype,
+    stacked = ("layers", "groups")
+    out = _tree({k: v for k, v in tree.items() if k not in stacked}, dtype,
                 device)
-    stacked = _tree(tree["layers"], dtype, device)
-
-    def layer(sub, i):
-        return {k: layer(v, i) if isinstance(v, dict) else v[i]
-                for k, v in sub.items()}
-    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    if "layers" in tree:
+        out["layers"] = _unstack(_tree(tree["layers"], dtype, device),
+                                 cfg.n_layers)
+    if "groups" in tree:
+        groups = _unstack(_tree(tree["groups"], dtype, device),
+                          n_groups(cfg))
+        out["groups"] = [_unstack(g, cfg.attn_every) for g in groups]
     return out

@@ -3,11 +3,15 @@
 The counterpart of ``repro/models/model.py``:
 
   ssm      [norm->mamba2] x L                         (mamba2)
+  hybrid   groups of `attn_every` mamba layers + one  (zamba2)
+           weight-SHARED attention/MLP block applied
+           after each group
 
 The reference's ``lax.scan`` over stacked layer parameters is a Python loop
-over a list of per-layer parameter dicts; its sharding ``constrain`` is a
-no-op on one card and is dropped.  The dense, MoE, hybrid, enc-dec and VLM
-families wait in ROADMAP.md (Queue 1 item 10) and raise here.
+over lists of per-layer parameter dicts (a hybrid model's ``groups`` is a
+list of lists); its sharding ``constrain`` is a no-op on one card and is
+dropped.  The dense, MoE, enc-dec and VLM families wait in ROADMAP.md
+(Queue 1) and raise here.
 """
 from __future__ import annotations
 
@@ -28,17 +32,31 @@ Tensor = torch.Tensor
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not run yet: a family other
-    than ``ssm``, or learned position embeddings (no ssm config has them)."""
-    if cfg.family != "ssm" or cfg.pos_emb == "learned":
+    than ``ssm`` and ``hybrid``, or learned position embeddings (neither
+    family's configs have them)."""
+    if cfg.family not in ("ssm", "hybrid") or cfg.pos_emb == "learned":
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}, pos_emb {cfg.pos_emb!r}) is "
             f"not ported to repro_torch yet; it is queued in ROADMAP.md, "
-            f"Queue 1 item 10")
+            f"Queue 1")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _init_dense_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
+    if cfg.family == "moe" or cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported to repro_torch yet; they "
+            f"are queued in ROADMAP.md, Queue 1")
+    return {
+        "attn_norm": L.init_norm(pb, cfg),
+        "attn": L.init_attention(pb, cfg),
+        "mlp_norm": L.init_norm(pb, cfg),
+        "mlp": L.init_mlp(pb, cfg),
+    }
+
 
 def _init_mamba_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
     return {
@@ -52,8 +70,10 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     """The parameter tree of ``cfg`` in ``cfg.dtype`` on ``device``.
 
     ``generator`` is a seed or a ``torch.Generator`` on ``device``'s type;
-    ``device=None`` is the card (raises without one).  ``layers`` is a list
-    of per-layer dicts.
+    ``device=None`` is the card (raises without one).  ``layers`` (ssm) is
+    a list of per-layer dicts; ``groups`` (hybrid) a list of ``n_layers //
+    attn_every`` lists of ``attn_every`` Mamba layers, and ``shared`` the
+    ONE attention/MLP block applied after every group.
     """
     check_ported(cfg)
     device = resolve_device(device)
@@ -66,8 +86,24 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = pb.param((cfg.d_model, cfg.vocab))
-    p["layers"] = [_init_mamba_layer(pb, cfg) for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        p["layers"] = [_init_mamba_layer(pb, cfg)
+                       for _ in range(cfg.n_layers)]
+    else:                                                   # hybrid
+        ng = n_groups(cfg)
+        p["groups"] = [[_init_mamba_layer(pb, cfg)
+                        for _ in range(cfg.attn_every)] for _ in range(ng)]
+        p["shared"] = _init_dense_layer(pb, cfg)
     return p
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    """A hybrid model's number of Mamba groups (= shared-block uses)."""
+    ng = cfg.n_layers // cfg.attn_every
+    if ng * cfg.attn_every != cfg.n_layers:
+        raise ValueError(f"attn_every {cfg.attn_every} does not divide "
+                         f"n_layers {cfg.n_layers}")
+    return ng
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +116,18 @@ def _mamba_block(p, x: Tensor, cfg: ModelConfig, *, collect_state=False):
         y, st = S.apply_mamba(p["mamba"], h, cfg, return_state=True)
         return x + y, st
     return x + S.apply_mamba(p["mamba"], h, cfg), None
+
+
+def _dense_block(p, x: Tensor, cfg: ModelConfig, q_pos: Tensor):
+    """Attention then MLP, each pre-normed and residual.  Returns the
+    output and the block's (K, V) (B, S, Kh, Dh), which prefill keeps."""
+    hn = L.apply_norm(p["attn_norm"], x, cfg)
+    q, k, v = L._qkv(p["attn"], hn, hn, cfg, q_pos, q_pos, True)
+    o = L.attention_core(q, k, v, q_pos, q_pos, cfg, causal=True,
+                         block_kv=cfg.attn_block_kv)
+    x = x + L.out_proj(o, p["attn"]["wo"])
+    h = L.apply_norm(p["mlp_norm"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg), (k, v)
 
 
 def embed_tokens(p, cfg: ModelConfig, tokens: Tensor) -> Tensor:
@@ -102,18 +150,35 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             collect_kv: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux, kv).
 
-    ``kv`` is ``{"states": {"ssm": (L,B,h,p,n), "conv": (L,B,K-1,ch)}}``
-    when ``collect_kv`` (the prefill cache), else None.
+    ``kv`` (the prefill cache) when ``collect_kv``, else None:
+    ``{"states": {"ssm": (L,B,h,p,n), "conv": (L,B,K-1,ch)}}``, the Mamba
+    layers in order (a hybrid model's group-major, group x attn_every +
+    layer); a hybrid model adds ``"shared": (K, V)``, each (G,B,S,Kh,Dh),
+    one per application of the shared block.
     """
     check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)
-    states = []
-    for pl in params["layers"]:
-        x, st = _mamba_block(pl, x, cfg, collect_state=collect_kv)
-        states.append(st)
+    states, kvs = [], []
+    if cfg.family == "ssm":
+        groups, shared = [params["layers"]], None
+    else:                                                   # hybrid
+        groups, shared = params["groups"], params["shared"]
+        b, s = tokens.shape
+        q_pos = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    for gp in groups:
+        for pl in gp:
+            x, st = _mamba_block(pl, x, cfg, collect_state=collect_kv)
+            states.append(st)
+        if shared is not None:
+            x, kv = _dense_block(shared, x, cfg, q_pos)
+            if collect_kv:
+                kvs.append(kv)
     logits = unembed(params, cfg, x)
     kv = None
     if collect_kv:
         kv = {"states": {k: torch.stack([st[k] for st in states])
                          for k in ("ssm", "conv")}}
+        if shared is not None:
+            kv["shared"] = tuple(torch.stack(t) for t in zip(*kvs))
     return logits, 0.0, kv

@@ -1,22 +1,43 @@
-"""Decode-state caches — the families the port runs so far.
+"""Decode-state (KV / SSM) caches — the families the port runs so far.
 
 The counterpart of ``repro/serving/cache.py``.  An SSM cache is O(1) in
 the sequence length: per layer a (B, H, P, N) float32 state and the last
 K-1 raw conv inputs, stacked over layers as in the reference, plus the
-scalar position.  The ring-buffer KV helpers wait for the attention
-families (ROADMAP.md, Queue 1 item 10).
+scalar position.  A hybrid cache adds the shared attention block's K/V,
+one ring per application, (G, B, ring, Kh, Dh).
+
+KV caches are RING buffers of length ``ring``: the cache length, or the
+decode/sliding window when that is shorter.  Position p lives in slot
+``p % ring``, and ``kv_pos`` (ring,) records which absolute position
+occupies each slot (-1 = empty); it drives the attention mask, so window
+and causal semantics survive wrap-around.  Batched decoding is
+position-aligned (one scalar ``pos`` per cache).  The dense, MoE, VLM and
+enc-dec caches wait for their families (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.model import check_ported
+from repro_torch.models.model import check_ported, n_groups
 
 Cache = Dict[str, Any]
+Tensor = torch.Tensor
+
+
+def ring_len(cfg: ModelConfig, cache_len: int) -> int:
+    w = cfg.decode_window or cfg.sliding_window
+    return min(w, cache_len) if w else cache_len
+
+
+def _kv(cfg: ModelConfig, n: int, batch: int, ring: int, device) -> Cache:
+    shape = (n, batch, ring, cfg.n_kv_heads, cfg.d_head)
+    return {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+            for k in ("k", "v")}
 
 
 def _ssm_states(cfg: ModelConfig, n: int, batch: int, device) -> Cache:
@@ -34,9 +55,50 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: Device = None) -> Cache:
     """An empty cache at ``pos`` 0 on ``device`` (``None``: the card).
 
-    ``cache_len`` bounds the sequence; the SSM cache does not depend on it.
+    ``cache_len`` bounds the sequence; the SSM states do not depend on it.
     """
     check_ported(cfg)
     device = resolve_device(device)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            **_ssm_states(cfg, cfg.n_layers, batch, device)}
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    states = _ssm_states(cfg, cfg.n_layers, batch, device)
+    if cfg.family == "ssm":
+        return {"pos": pos, **states}
+    ring = ring_len(cfg, cache_len)                          # hybrid
+    return {"pos": pos,
+            "kv_pos": torch.full((ring,), -1, dtype=torch.int32,
+                                 device=device),
+            **states,
+            "shared": _kv(cfg, n_groups(cfg), batch, ring, device)}
+
+
+# ---------------------------------------------------------------------------
+# prefill -> cache construction, and the decode write
+# ---------------------------------------------------------------------------
+
+def ring_pack(k_full: Tensor, ring: int) -> Tensor:
+    """(N, B, S, ...) full-sequence K/V -> (N, B, ring, ...) ring buffer.
+
+    Keeps the last ``ring`` positions, each at slot p % ring.
+    """
+    s = k_full.shape[2]
+    if s <= ring:
+        return F.pad(k_full, (0, 0) * (k_full.dim() - 3) + (0, ring - s))
+    return torch.roll(k_full[:, :, s - ring:], (s - ring) % ring, dims=2)
+
+
+def ring_positions(s: int, ring: int, device: Device = None) -> Tensor:
+    """kv_pos (ring,) int32 after prefilling positions [0, s), on
+    ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    if s <= ring:
+        slots = torch.arange(ring, dtype=torch.int32, device=device)
+        return torch.where(slots < s, slots, -1)
+    pos = torch.arange(s - ring, s, dtype=torch.int32, device=device)
+    return torch.roll(pos, (s - ring) % ring)
+
+
+def write_token(kc: Tensor, k_new: Tensor, slot: Tensor) -> Tensor:
+    """A copy of ``kc`` (B, ring, ...) with one token's K/V ``k_new``
+    (B, 1, ...) at ``slot`` (an integer tensor of one element, on the
+    cache's device: no host sync).  ``kc`` is left as it was."""
+    return kc.index_copy(1, slot.reshape(1).long(), k_new.to(kc.dtype))

@@ -1,9 +1,10 @@
 """Serving: prefill and single-token decode steps.
 
 The counterpart of ``repro/serving/engine.py`` for the families the port
-runs so far (``ssm``).  The reference's ``lax.scan`` over stacked layers
-and over decode steps are Python loops here; eager decoding launches a few
-dozen small kernels per layer and step (CUDA graphs are later work).
+runs so far (``ssm``, ``hybrid``).  The reference's ``lax.scan`` over
+stacked layers and over decode steps are Python loops here; eager decoding
+launches a few dozen small kernels per layer and step (CUDA graphs are
+later work).
 
 Batched decoding is position-aligned (one scalar ``pos`` per cache); the
 continuous-batching driver (``serving/lm_driver.py``) packs requests into
@@ -19,39 +20,111 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
+from repro_torch.serving import cache as C
 
 Tensor = torch.Tensor
 
+
+# ---------------------------------------------------------------------------
+# shared decode sub-blocks
+# ---------------------------------------------------------------------------
+
+def _attn_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor, vc: Tensor,
+                 pos: Tensor, kv_pos: Tensor, slot: Tensor):
+    """One-token self-attention against a ring cache.  Returns (y, kc, vc),
+    the caches new tensors with the token written at ``slot``."""
+    b = x.shape[0]
+    h = L.apply_norm(pl["attn_norm"], x, cfg)
+    qp = pos.reshape(1, 1).expand(b, 1)
+    q, k, v = L._qkv(pl["attn"], h, h, cfg, qp, qp, True)
+    kc = C.write_token(kc, k, slot)
+    vc = C.write_token(vc, v, slot)
+    kvp = kv_pos[None].expand(b, -1)
+    o = L.decode_attention(q, kc, vc, qp, kvp, window=cfg.sliding_window)
+    return x + L.out_proj(o, pl["attn"]["wo"]), kc, vc
+
+
+def _ffn_decode(pl, x: Tensor, cfg: ModelConfig) -> Tensor:
+    h = L.apply_norm(pl["mlp_norm"], x, cfg)
+    return x + L.apply_mlp(pl["mlp"], h, cfg)
+
+
+def _mamba_decode(pl, x: Tensor, st, cfg: ModelConfig):
+    h = L.apply_norm(pl["norm"], x, cfg)
+    y, st = S.apply_mamba_decode(pl["mamba"], h, st, cfg)
+    return x + y, st
+
+
+def _mamba_layers(layers, x: Tensor, cache, first: int, cfg: ModelConfig):
+    """Decode through consecutive Mamba layers whose states sit at
+    ``first``, ``first + 1``, ... of the cache's stacked states."""
+    states = []
+    for i, pl in enumerate(layers, first):
+        x, st = _mamba_decode(
+            pl, x, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}, cfg)
+        states.append(st)
+    return x, states
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 token: Tensor) -> Tuple[Tensor, Dict[str, Any]]:
     """token (B, 1) int -> (logits (B, 1, V) float32, new cache).
 
-    The new cache is new tensors; ``cache`` is left as it was.
+    The new cache is new tensors; ``cache`` is left as it was (the token's
+    K/V goes into a copy of each ring).  The ring slot is ``pos % ring``,
+    and ``kv_pos[slot] = pos`` before attending, computed on the device.
     """
     M.check_ported(cfg)
+    pos = cache["pos"]
     x = M.embed_tokens(params, cfg, token)                       # (B,1,D)
-    states = []
-    for i, pl in enumerate(params["layers"]):
-        h = L.apply_norm(pl["norm"], x, cfg)
-        y, st = S.apply_mamba_decode(
-            pl["mamba"], h, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
-            cfg)
-        x = x + y
-        states.append(st)
+    new = dict(cache)
+    if cfg.family == "ssm":
+        x, states = _mamba_layers(params["layers"], x, cache, 0, cfg)
+    else:                                                        # hybrid
+        slot = torch.remainder(pos, cache["kv_pos"].shape[0]).reshape(1)
+        kv_pos = cache["kv_pos"].index_copy(0, slot.long(), pos.reshape(1))
+        shared, every = params["shared"], cfg.attn_every
+        states, ks, vs = [], [], []
+        for g, gp in enumerate(params["groups"]):
+            x, st = _mamba_layers(gp, x, cache, g * every, cfg)
+            states += st
+            x, kc, vc = _attn_decode(shared, x, cfg, cache["shared"]["k"][g],
+                                     cache["shared"]["v"][g], pos, kv_pos,
+                                     slot)
+            x = _ffn_decode(shared, x, cfg)
+            ks.append(kc)
+            vs.append(vc)
+        new["kv_pos"] = kv_pos
+        new["shared"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     logits = M.unembed(params, cfg, x)
-    new = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
-    return logits, {**cache, **new, "pos": cache["pos"] + 1}
+    new.update({k: torch.stack([st[k] for st in states])
+                for k in ("ssm", "conv")})
+    new["pos"] = pos + 1
+    return logits, new
 
 
 def prefill(params, cfg: ModelConfig, tokens: Tensor, cache_len: int):
-    """tokens (B, S) -> (logits (B, S, V), cache ready for decode at pos=S)."""
+    """tokens (B, S) -> (logits (B, S, V), cache ready for decode at pos=S).
+
+    The cache has :func:`cache.init_cache`'s layout, filled from the
+    forward's final SSM states and (hybrid) the shared block's K/V packed
+    into rings.
+    """
     s = tokens.shape[1]
     logits, _, kv = M.forward(params, cfg, tokens, collect_kv=True)
-    # the layout of C.init_cache, filled from the forward's final states
     cc = {"pos": torch.full((), s, dtype=torch.int32, device=tokens.device),
           "ssm": kv["states"]["ssm"],
           "conv": kv["states"]["conv"].to(cfg.torch_dtype)}
+    if cfg.family == "hybrid":
+        ring = C.ring_len(cfg, cache_len)
+        cc["kv_pos"] = C.ring_positions(s, ring, device=tokens.device)
+        k, v = kv["shared"]
+        cc["shared"] = {"k": C.ring_pack(k.to(cfg.torch_dtype), ring),
+                        "v": C.ring_pack(v.to(cfg.torch_dtype), ring)}
     return logits, cc
 
 

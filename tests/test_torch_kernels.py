@@ -394,7 +394,10 @@ def test_port_imports_neither_jax_nor_reference():
             " repro_torch.kernels.sptc_spmm, repro_torch.kernels.stencil_gemm,"
             " repro_torch.kernels.stencil_direct, repro_torch.models,"
             " repro_torch.serving, repro_torch.configs,"
-            " repro_torch.launch.serve, repro_torch.kernels.conv1d\n"
+            " repro_torch.launch.serve, repro_torch.kernels.conv1d,"
+            " repro_torch.models.layers, repro_torch.models.model,"
+            " repro_torch.models.convert, repro_torch.serving.cache,"
+            " repro_torch.serving.engine, repro_torch.configs.zamba2_2_7b\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")
