@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives seven
+each kernel against its plain torch version on the card, and drives ten
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -39,7 +39,23 @@ after:
   bf16, 2,422,670,240 random parameters): the conv kernel in all 54
   layers of every prefill, the shared block's K/V in ring caches; before
   it, the model cut to 12 layers holds the kernel against its plain
-  version and prefill-then-decode against forward, with the ring wrapped.
+  version and prefill-then-decode against forward, with the ring wrapped;
+* serving the dense ``qwen3-1.7b`` (28 layers, 1,720,574,976 parameters)
+  and the MoE ``granite-moe-3b-a800m`` (32 layers, 40 experts top-8,
+  3,298,793,472 parameters) the same way, at full width and depth in
+  bf16; before each, its 2-layer cut at full width in float32 holds
+  prefill-then-decode against forward through a full and a wrapped ring
+  (the MoE's cut drop-free); the profile splits out the attention core's
+  and the MoE's device time, and the MoE's prefill reports the share of
+  (token, choice) pairs its capacity drops;
+* ``phi3-mini-3.8b``, ``starcoder2-7b`` and ``chatglm3-6b`` at full width
+  and depth and ``mixtral-8x22b`` at full width cut to 4 of its 56 layers
+  (281 GB in bf16 whole), one at a time: the parameter count, a 4 x 512
+  prefill with finite logits and 8 greedy decode steps, timed.
+
+The dense and MoE families reach no Pallas kernel in the reference, so
+their three phases launch no kernel of the port, and each checks that the
+conv kernel was launched no time.
 
 It times every kernel with CUDA events at the paths' shapes and prints the
 card, a ``kernels`` JSON line and a final contract line.  Every phase
@@ -76,6 +92,8 @@ LM_TOL_F32 = 1e-4
 LM_TOL_BF16 = 1e-4
 ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "zamba2-2.7b"
+DENSE_ARCH = "qwen3-1.7b"
+MOE_ARCH = "granite-moe-3b-a800m"
 #: the same logits against use_kernels=False, whose conv (the reference's
 #: oracle) rounds to bf16 after every tap: a wider limit in bf16.  Through
 #: the hybrid cut's twelve layers and two attention blocks those per-tap
@@ -86,14 +104,29 @@ LM_TOL_OFF = {ARCH: {"float32": 1e-4, "bfloat16": 0.25},
               HYBRID_ARCH: {"float32": 1e-4, "bfloat16": None}}
 #: each served model's parameter count, as the reference counts it
 #: (``jax.eval_shape`` of its ``init_params`` gives the same)
-N_PARAMS = {ARCH: 2_702_579_200, HYBRID_ARCH: 2_422_670_240}
+N_PARAMS = {ARCH: 2_702_579_200, HYBRID_ARCH: 2_422_670_240,
+            DENSE_ARCH: 1_720_574_976, MOE_ARCH: 3_298_793_472}
 #: the layers of each phase's cut model (Zamba2: two groups of six, so the
 #: shared block is applied twice)
-LM_CUT = {ARCH: 2, HYBRID_ARCH: 12}
+LM_CUT = {ARCH: 2, HYBRID_ARCH: 12, DENSE_ARCH: 2, MOE_ARCH: 2}
+#: what else the cut changes: the MoE's cut runs drop-free, as the
+#: reference's smoke configs do, so decode equals forward
+CUT_FIELDS = {MOE_ARCH: {"capacity_factor": 8.0}}
 #: prefill-then-decode against forward in float32: the reference's own
-#: hybrid tolerance (tests/test_arch_smoke.py:83), relative to 1 + |want|
-RING_TOL = 2e-2
+#: tolerances (tests/test_arch_smoke.py:83), relative to 1 + |want|
+RING_TOL = {"hybrid": 2e-2, "dense": 1e-2, "moe": 1e-2}
 RING_PROMPT, RING_WINDOW = 100, 48
+#: phase lm-variants: (arch, layers or None for full depth, parameters as
+#: the reference counts them, what the config exercises).  Mixtral whole is
+#: 140,630,071,296 parameters, 281 GB in bf16, more than the card holds
+VARIANTS = (("phi3-mini-3.8b", None, 3_821_079_552, "MHA, d_head 96"),
+            ("starcoder2-7b", None, 7_399_351_296,
+             "LN + GELU, 36/4 GQA, window 4096"),
+            ("chatglm3-6b", None, 6_243_454_976,
+             "32/2 GQA, RoPE on half the lanes"),
+            ("mixtral-8x22b", 4, 10_418_903_040,
+             "8 experts top-2, window 4096; 4 of 56 layers"))
+VARIANT_PROMPT, VARIANT_STEPS = 512, 8
 #: each model's conv input: (channels d_inner + 2 * state, the width of the
 #: input projection it is a column slice of)
 CONV_VIEWS = {ARCH: (5376, 10576), HYBRID_ARCH: (5248, 10448)}
@@ -272,15 +305,17 @@ def _profile(fn, label: str, smi: str, top: int = 8,
 def _model_regions():
     """Open a profiler region around the LM's attention core (prefill's
     ``attention_core``, decode's ``decode_attention``: scores, softmax and
-    PV, what a fused attention kernel would replace) and around the decode
-    step's ring write (``write_token``), so ``_profile`` can split their
-    device time out."""
+    PV, what a fused attention kernel would replace), around the decode
+    step's ring write (``write_token``) and around the MoE layer
+    (``apply_moe``: routing, dispatch, experts, combine), so ``_profile``
+    can split their device time out."""
     import torch
     from repro_torch.models import layers
     from repro_torch.serving import cache
     targets = ((layers, "attention_core", "attention"),
                (layers, "decode_attention", "attention"),
-               (cache, "write_token", "ring_write"))
+               (cache, "write_token", "ring_write"),
+               (layers, "apply_moe", "moe"))
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
     def wrap(fn, name):
@@ -291,7 +326,7 @@ def _model_regions():
     for mod, attr, name in targets:
         setattr(mod, attr, wrap(getattr(mod, attr), name))
     try:
-        yield ("attention", "ring_write")
+        yield ("attention", "ring_write", "moe")
     finally:
         for mod, attr, fn in kept:
             setattr(mod, attr, fn)
@@ -299,13 +334,15 @@ def _model_regions():
 
 def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
     """Prefill S tokens, then decode token S, against ``forward``'s logits
-    at position S (float32, within ``RING_TOL`` relative to 1 + |forward|):
+    at position S (float32, within the family's ``RING_TOL`` relative to
+    1 + |forward|):
     once with a ring as long as the cache, once with sliding_window =
     decode_window = ``RING_WINDOW`` < S, where the ring wraps (the forward
     masks to the same window, so both see the same keys)."""
     from repro_torch.models import model as M
     from repro_torch.serving import engine as E
     s = toks.shape[1] - 1
+    tol = RING_TOL[cfg.family]
     out = {}
     for window in (None, RING_WINDOW):
         c = cfg if window is None else cfg.scaled(sliding_window=window,
@@ -317,42 +354,126 @@ def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
         if int(cc2["pos"]) != s + 1:
             raise AssertionError(f"decode left pos {int(cc2['pos'])}")
         row = {"window": window, "ring": ring, "wraps": s > ring,
-               "max_abs_err": _err(step[:, 0], full, RING_TOL),
-               "rel_err": _rel(step[:, 0], full), "tol": RING_TOL}
+               "max_abs_err": _err(step[:, 0], full, tol),
+               "rel_err": _rel(step[:, 0], full), "tol": tol}
         out["wrapping" if window else "full"] = row
         print(f"phase {phase} {cfg.name} cut to {cfg.n_layers} layers, "
               f"float32: prefill {s} tokens then decode token {s} against "
               f"forward at position {s}, ring {ring} slots"
               f"{' (wrapped)' if row['wraps'] else ''}"
               f"{f', window {window}' if window else ''}: max rel err "
-              f"{row['rel_err']:.3g} (tol {RING_TOL}) | card {smi}")
+              f"{row['rel_err']:.3g} (tol {tol}) | card {smi}")
     if not out["wrapping"]["wraps"]:
         raise AssertionError("the ring check did not wrap the ring")
     return out
 
 
+def _full_depth_conv(params, cfg, batch0, logits, tag: str) -> dict:
+    """A Mamba model at full depth: its prefill ``logits`` of ``batch0``
+    against the same model whose conv is the kernel's plain version (bf16,
+    within ``LM_TOL_BF16``), and against ``use_kernels=False`` in bf16 and
+    (1 x 128 tokens) float32, information only."""
+    import torch
+    from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
+    from repro_torch.models import model as M
+    out = {}
+    with _model_conv(conv1d_causal_plain):
+        plain = M.forward(params, cfg, batch0)[0]
+    full_err = _err(logits, plain, LM_TOL_BF16)
+    plain = M.forward(params, cfg.scaled(use_kernels=False), batch0)[0]
+    full_diff = float((plain - logits).abs().max())
+    logit_max = float(plain.abs().max())
+    del plain
+    print(f"{tag}: full depth, kernel vs its plain version in the model max "
+          f"|logit diff| {full_err:.3g} (tol {LM_TOL_BF16}); use_kernels on "
+          f"vs off max |logit diff| {full_diff:.3g} of max |logit| "
+          f"{logit_max:.3g} (information only)")
+    out["full_depth_bf16"] = {"max_abs_err_vs_plain": full_err,
+                              "max_abs_logit_diff": full_diff,
+                              "max_abs_logit": logit_max}
+    # the same comparison in float32 (information only): without bf16's
+    # per-tap rounding in the plain conv, the two runs differ by sum order
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = M.init_params(cfg32, 0, device=batch0.device)
+    on = M.forward(p32, cfg32, batch0[:1, :128])[0]
+    off = M.forward(p32, cfg32.scaled(use_kernels=False), batch0[:1, :128])[0]
+    out["full_depth_f32"] = {"max_abs_logit_diff": float((on - off).abs().max()),
+                             "max_abs_logit": float(off.abs().max())}
+    del p32, on, off
+    torch.cuda.empty_cache()
+    print(f"{tag}: full depth in float32 (1 x 128 tokens), use_kernels on "
+          f"vs off max |logit diff| "
+          f"{out['full_depth_f32']['max_abs_logit_diff']:.3g} of max |logit| "
+          f"{out['full_depth_f32']['max_abs_logit']:.3g} (information only)")
+    return out
+
+
+@contextlib.contextmanager
+def _moe_keeps():
+    """Record, for every ``moe_route`` call inside, (kept, all) (token,
+    choice) pairs; yields the list (empty for a model without MoE)."""
+    from repro_torch.models import layers
+    kept_fn = layers.moe_route
+    keeps: list = []
+
+    def route(*args, **kwargs):
+        r = kept_fn(*args, **kwargs)
+        keeps.append((int(r.keep.sum()), r.keep.numel()))
+        return r
+    layers.moe_route = route
+    try:
+        yield keeps
+    finally:
+        layers.moe_route = kept_fn
+
+
 def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     """Serve ``arch`` at full width and depth through GenerateDriver, check
     it, and time and profile prefill and decode.  First the config cut to
-    ``cut`` layers holds the conv kernel against its plain version in the
-    model, and (hybrid) prefill-then-decode against forward."""
+    ``cut`` layers: for a family with Mamba layers it holds the conv kernel
+    against its plain version in the model; for a family with attention,
+    prefill-then-decode against forward.  A family without Mamba layers
+    (dense, MoE) must launch the conv kernel no time."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
+    from repro_torch.models import layers
     from repro_torch.models import model as M
     from repro_torch.models.nn import count_params
     from repro_torch.serving import BatchPolicy, GenerateDriver
     from repro_torch.serving import engine as E
 
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(2)
     out: dict = {}
     tag = f"phase {phase} {arch}"
+    family = get_config(arch).family
+    mamba = family in ("ssm", "hybrid")
+    if not mamba:
+        # the cut at full width in float32: prefill-then-decode against
+        # forward through a full and a wrapped ring, and no conv launch
+        cfg2 = get_config(arch).scaled(n_layers=cut, dtype="float32",
+                                       use_kernels=True,
+                                       **CUT_FIELDS.get(arch, {}))
+        p2 = M.init_params(cfg2, 1, device=dev)
+        ring_toks = torch.as_tensor(
+            rng.integers(0, cfg2.vocab, (2, RING_PROMPT + 1)), device=dev)
+        conv_ops.conv1d_causal.launches = 0
+        out["ring"] = _ring_check(p2, cfg2, ring_toks, phase, smi)
+        if conv_ops.conv1d_causal.launches:
+            raise AssertionError(f"the {family} cut launched the conv kernel "
+                                 f"{conv_ops.conv1d_causal.launches} times")
+        out["cut_float32"] = {"conv1d_launches": 0,
+                              **CUT_FIELDS.get(arch, {})}
+        del p2, ring_toks
     # the config cut to `cut` layers: the kernel against its plain version
     # in the same model, against use_kernels=False, and a planted fault
     # (the plain conv with its taps shifted by one) that the first check
     # must fail
-    for dt, tol in (("float32", LM_TOL_F32), ("bfloat16", LM_TOL_BF16)):
+    cut_dtypes = ((("float32", LM_TOL_F32), ("bfloat16", LM_TOL_BF16))
+                  if mamba else ())
+    for dt, tol in cut_dtypes:
         cfg2 = get_config(arch).scaled(n_layers=cut, dtype=dt,
                                        use_kernels=True)
         p2 = M.init_params(cfg2, 1, device=dev)
@@ -402,6 +523,7 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     torch.cuda.empty_cache()
 
     cfg = get_config(arch).scaled(use_kernels=True)
+    n_mamba = cfg.n_layers if mamba else 0      # conv launches per prefill
     t0 = time.perf_counter()
     params = M.init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
@@ -432,22 +554,23 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
         if tuple(t.shape) != (NEW_TOKENS,) or int(t.min()) < 0 or \
                 int(t.max()) >= cfg.vocab:
             raise AssertionError(f"request {i}: tokens {tuple(t.shape)}")
-    if batches != N_REQUESTS // MAX_BATCH or \
-            launches != cfg.n_layers * batches:
+    if batches != N_REQUESTS // MAX_BATCH or launches != n_mamba * batches:
         raise AssertionError(f"{batches} batches, {launches} conv1d launches "
-                             f"(want {cfg.n_layers} per prefill)")
+                             f"(want {n_mamba} per prefill)")
     print(f"{tag} main path: served {N_REQUESTS} requests of {PROMPT_LEN} "
           f"tokens, {NEW_TOKENS} new tokens each, in {wall:.2f} s "
           f"({N_REQUESTS * NEW_TOKENS / wall:.1f} new tok/s), batches "
           f"{batches}, occupancy {stats['batch_occupancy']}, p50 "
           f"{stats['latency']['p50_ms']:.0f} ms, p99 "
           f"{stats['latency']['p99_ms']:.0f} ms; conv1d_causal launches "
-          f"{launches} = {cfg.n_layers} x {batches} prefills | card {smi}")
+          f"{launches} = {n_mamba} x {batches} prefills | card {smi}")
 
     # the first batch again: finite logits, the served first tokens, and
-    # the full depth with the plain conv
+    # (Mamba layers) the full depth with the plain conv; an MoE's routing
+    # is recorded to count the choices its capacity drops
     batch0 = torch.stack(prompts[:MAX_BATCH]).to(dev)
-    logits, cc = E.prefill(params, cfg, batch0, cache_len)
+    with _moe_keeps() as keeps:
+        logits, cc = E.prefill(params, cfg, batch0, cache_len)
     if tuple(logits.shape) != (MAX_BATCH, PROMPT_LEN, cfg.vocab) or \
             logits.dtype != torch.float32 or not bool(logits.isfinite().all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -457,36 +580,21 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     if not torch.equal(first.to(served.dtype), served):
         raise AssertionError(f"served first tokens {served.tolist()} != "
                              f"prefill argmax {first.tolist()}")
-    with _model_conv(conv1d_causal_plain):
-        plain = M.forward(params, cfg, batch0)[0]
-    full_err = _err(logits, plain, LM_TOL_BF16)
-    plain = M.forward(params, cfg.scaled(use_kernels=False), batch0)[0]
-    full_diff = float((plain - logits).abs().max())
-    logit_max = float(plain.abs().max())
-    del plain
+    if keeps:
+        kept, pairs = (sum(k for k, _ in keeps), sum(n for _, n in keeps))
+        out["moe_dropped_share"] = 1 - kept / pairs
+        group = min(cfg.moe_group, MAX_BATCH * PROMPT_LEN)
+        print(f"{tag}: prefill {MAX_BATCH} x {PROMPT_LEN} at capacity_factor "
+              f"{cfg.capacity_factor} (cap {layers.moe_capacity(cfg, group)} "
+              f"slots of {group} tokens x top-{cfg.top_k} / "
+              f"{cfg.n_experts} experts): {pairs - kept:,} of {pairs:,} "
+              f"(token, choice) pairs dropped over {len(keeps)} layers, "
+              f"{100 * out['moe_dropped_share']:.2f}% (information only) | "
+              f"card {smi}")
     print(f"{tag}: prefill logits finite float32, served first tokens = "
-          f"argmax {served.tolist()}; full depth, kernel vs its plain "
-          f"version in the model max |logit diff| {full_err:.3g} (tol "
-          f"{LM_TOL_BF16}); use_kernels on vs off max |logit diff| "
-          f"{full_diff:.3g} of max |logit| {logit_max:.3g} (information "
-          f"only)")
-    out["full_depth_bf16"] = {"max_abs_err_vs_plain": full_err,
-                              "max_abs_logit_diff": full_diff,
-                              "max_abs_logit": logit_max}
-    # the same comparison in float32 (information only): without bf16's
-    # per-tap rounding in the plain conv, the two runs differ by sum order
-    cfg32 = cfg.scaled(dtype="float32")
-    p32 = M.init_params(cfg32, 0, device=dev)
-    on = M.forward(p32, cfg32, batch0[:1, :128])[0]
-    off = M.forward(p32, cfg32.scaled(use_kernels=False), batch0[:1, :128])[0]
-    out["full_depth_f32"] = {"max_abs_logit_diff": float((on - off).abs().max()),
-                             "max_abs_logit": float(off.abs().max())}
-    del p32, on, off
-    torch.cuda.empty_cache()
-    print(f"{tag}: full depth in float32 (1 x 128 tokens), use_kernels on "
-          f"vs off max |logit diff| "
-          f"{out['full_depth_f32']['max_abs_logit_diff']:.3g} of max |logit| "
-          f"{out['full_depth_f32']['max_abs_logit']:.3g} (information only)")
+          f"argmax {served.tolist()}")
+    if mamba:
+        out.update(_full_depth_conv(params, cfg, batch0, logits, tag))
 
     # timing: prefill of one batch, then decode steps (host clock, synced)
     times = []
@@ -523,7 +631,9 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     conv = [(ms, n) for ms, n, key in prof.pop("rows")
             if "conv1d_causal_kernel" in key]
     dec.pop("rows")
-    if conv and prof["device_ms"]:
+    if not mamba:
+        out["conv_in_prefill"] = None       # no Mamba layer, no conv kernel
+    elif conv and prof["device_ms"]:
         c_ms, c_n = sum(r[0] for r in conv), sum(r[1] for r in conv)
         out["conv_in_prefill"] = {
             "ms": c_ms, "launches": c_n,
@@ -537,10 +647,12 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
         out["conv_in_prefill"] = None
         print(f"{tag}: conv share of prefill not measured (the profile "
               f"holds no conv1d_causal_kernel row)")
-    if cfg.family == "hybrid":
+    if family != "ssm":
         # prefill writes no ring slot: its K/V is packed once
-        for name, pr, regs in (("prefill", prof, ("attention",)),
-                               ("decode step", dec, regions)):
+        pre = ("attention", "moe") if family == "moe" else ("attention",)
+        regs_dec = regions if family == "moe" else regions[:2]
+        for name, pr, regs in (("prefill", prof, pre),
+                               ("decode step", dec, regs_dec)):
             for reg in regs:
                 ms = pr["by_region"].get(reg)
                 if ms is None or not pr["device_ms"]:
@@ -559,9 +671,97 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
                 "conv1d_launches": launches, "metrics": stats,
                 "prefill_ms": prefill_ms,
                 "prefill_tok_s": MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3,
-                "decode_ms_per_step": decode_ms, "n_layers": cfg.n_layers})
+                "decode_ms_per_step": decode_ms, "n_layers": cfg.n_layers,
+                "seconds": time.perf_counter() - t_phase})
     del params, cc, driver
     torch.cuda.empty_cache()
+    print(f"phase {phase}: {out['seconds']:.1f} s")
+    return out
+
+
+def _phase_variants(dev, smi: str) -> dict:
+    """Each config of ``VARIANTS`` once at full width, freed before the
+    next: its parameter count, a prefill of ``MAX_BATCH`` x
+    ``VARIANT_PROMPT`` with finite float32 logits, ``generate`` with
+    ``VARIANT_STEPS`` greedy decode steps whose first token is the
+    prefill's argmax, no conv launch; the prefill (median of 3) and a
+    decode step (mean of ``VARIANT_STEPS``) timed on the host's clock,
+    synced."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.nn import count_params
+    from repro_torch.serving import engine as E
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)
+    out: dict = {}
+    for arch, cut, n_want, what in VARIANTS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).scaled(use_kernels=True)
+        if cut:
+            cfg = cfg.scaled(n_layers=cut)
+        params = M.init_params(cfg, 0, device=dev)
+        n = count_params(params)
+        if n != n_want:
+            raise AssertionError(f"{arch}: {n:,} parameters, want {n_want:,}")
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                            (MAX_BATCH, VARIANT_PROMPT)),
+                               dtype=torch.int32, device=dev)
+        cache_len = VARIANT_PROMPT + VARIANT_STEPS
+        conv_ops.conv1d_causal.launches = 0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cc = E.prefill(params, cfg, toks, cache_len)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if tuple(logits.shape) != (MAX_BATCH, VARIANT_PROMPT, cfg.vocab) or \
+                logits.dtype != torch.float32 or \
+                not bool(logits.isfinite().all()):
+            raise AssertionError(f"{arch}: prefill logits "
+                                 f"{tuple(logits.shape)} {logits.dtype} not "
+                                 f"finite float32")
+        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        del logits
+        gen, _ = E.generate(params, cfg, toks, VARIANT_STEPS, cache_len)
+        if tuple(gen.shape) != (MAX_BATCH, VARIANT_STEPS) or \
+                not torch.equal(gen[:, 0], first):
+            raise AssertionError(f"{arch}: generate's first tokens "
+                                 f"{gen[:, 0].tolist()} != prefill argmax "
+                                 f"{first.tolist()}")
+        tok = first[:, None]
+        E.decode_step(params, cfg, cc, tok)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VARIANT_STEPS):
+            lg, cc = E.decode_step(params, cfg, cc, tok)
+            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / VARIANT_STEPS
+        if conv_ops.conv1d_causal.launches:
+            raise AssertionError(f"{arch}: {conv_ops.conv1d_causal.launches} "
+                                 f"conv1d launches")
+        row = {"params": n, "n_layers": cfg.n_layers,
+               "prefill_ms": statistics.median(times),
+               "decode_ms_per_step": decode_ms,
+               "generated_first": first.tolist(), "what": what,
+               "seconds": time.perf_counter() - t_arch}
+        out[arch] = row
+        depth = (f"{cut} of {get_config(arch).n_layers} layers (cut: 281 GB "
+                 f"in bf16 whole)" if cut else f"{cfg.n_layers} layers")
+        print(f"phase lm-variants {arch} ({what}): {n:,} parameters, "
+              f"{depth}, {cfg.dtype}; prefill {MAX_BATCH} x {VARIANT_PROMPT} "
+              f"{row['prefill_ms']:.2f} ms, finite float32 logits; "
+              f"{VARIANT_STEPS} greedy decode steps, first tokens = argmax "
+              f"{first.tolist()}, {decode_ms:.2f} ms per step; 0 conv1d "
+              f"launches; {row['seconds']:.1f} s | card {smi}")
+        del params, cc, gen, lg, tok, first
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase lm-variants: {out['seconds']:.1f} s")
     return out
 
 
@@ -1862,8 +2062,18 @@ def main() -> int:
     # -- phase lm-hybrid: zamba2-2.7b served at full width and depth ---------
     hybrid = _phase_lm(dev, smi, HYBRID_ARCH, "lm-hybrid", LM_CUT[HYBRID_ARCH])
     results["lm_hybrid"] = hybrid
-    launches["conv1d_causal"] = lm["conv1d_launches"] + \
-        hybrid["conv1d_launches"]
+
+    # -- phases lm-dense, lm-moe: qwen3-1.7b and granite-moe-3b-a800m --------
+    dense = _phase_lm(dev, smi, DENSE_ARCH, "lm-dense", LM_CUT[DENSE_ARCH])
+    results["lm_dense"] = dense
+    moe = _phase_lm(dev, smi, MOE_ARCH, "lm-moe", LM_CUT[MOE_ARCH])
+    results["lm_moe"] = moe
+
+    # -- phase lm-variants: the other dense and MoE configs at full width ---
+    results["lm_variants"] = _phase_variants(dev, smi)
+    # every LM phase's main path (the dense and MoE phases launch none)
+    launches["conv1d_causal"] = sum(
+        ph["conv1d_launches"] for ph in (lm, hybrid, dense, moe))
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

@@ -1,11 +1,14 @@
 """Serving launcher: continuous-batched generate over the scheduler.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         [--smoke] [--device cpu] --requests 8 --max-batch 4 \\
         --prompt-len 32 --new-tokens 32
 
-``--arch`` is any architecture of ``repro_torch.configs.ARCHS``
-(``mamba2-2.7b``, ``zamba2-2.7b``).
+``--arch`` is any architecture of ``repro_torch.configs.ARCHS``: the dense
+``qwen3-1.7b``, ``phi3-mini-3.8b``, ``starcoder2-7b`` and ``chatglm3-6b``,
+the MoE ``granite-moe-3b-a800m`` and ``mixtral-8x22b`` (whose 281 GB in
+bf16 no single card holds: on one card, ``--smoke`` only), the SSM
+``mamba2-2.7b`` and the hybrid ``zamba2-2.7b``.
 
 The counterpart of ``repro/launch/serve.py``, with the same flags and
 printout plus ``--device`` (default: the card; ``cpu`` runs the kernels'

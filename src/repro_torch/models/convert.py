@@ -3,8 +3,9 @@
 The JAX reference and this port share no objects.  A caller (or a test)
 that holds a reference config passes ``dataclasses.asdict(cfg)``, and one
 that holds reference parameters passes them as NumPy arrays
-(every leaf as ``np.asarray``, stacked ``(L, ...)`` layer leaves, or
-``(G, E, ...)`` group leaves);
+(every leaf as ``np.asarray``, stacked ``(L, ...)`` layer leaves — an
+MoE layer's ``(L, E, d, f)`` experts among them — or ``(G, E, ...)``
+group leaves);
 these helpers rebuild the port's objects, so both packages compute the
 same thing from the same weights.
 """
@@ -67,8 +68,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device: Device = None) -> Params:
     """The port's parameters from the reference's parameter tree.
 
-    Stacked ``(L, ...)`` ``layers`` leaves are split into the port's list
-    of per-layer dicts, ``(G, E, ...)`` ``groups`` leaves into a list of G
+    Stacked ``(L, ...)`` ``layers`` leaves are split at L only into the
+    port's list of per-layer dicts (an MoE layer keeps its ``(E, d, f)``
+    expert tensors whole), ``(G, E, ...)`` ``groups`` leaves into a list of G
     lists of E; every other subtree (a hybrid model's ONE ``shared`` block)
     is carried leaf for leaf.  Every tensor is cast to ``cfg.dtype`` (as
     the reference casts them at use) on ``device`` (``None``: the card).

@@ -2,6 +2,9 @@
 
 The counterpart of ``repro/models/model.py``:
 
+  dense    [norm->attn, norm->mlp] x L                (starcoder2, chatglm3,
+                                                       qwen3, phi3)
+  moe      [norm->attn, norm->moe] x L                (granite-moe, mixtral)
   ssm      [norm->mamba2] x L                         (mamba2)
   hybrid   groups of `attn_every` mamba layers + one  (zamba2)
            weight-SHARED attention/MLP block applied
@@ -10,8 +13,8 @@ The counterpart of ``repro/models/model.py``:
 The reference's ``lax.scan`` over stacked layer parameters is a Python loop
 over lists of per-layer parameter dicts (a hybrid model's ``groups`` is a
 list of lists); its sharding ``constrain`` is a no-op on one card and is
-dropped.  The dense, MoE, enc-dec and VLM families wait in ROADMAP.md
-(Queue 1) and raise here.
+dropped.  The enc-dec and VLM families wait in ROADMAP.md (Queue 1) and
+raise here.
 """
 from __future__ import annotations
 
@@ -31,10 +34,10 @@ Tensor = torch.Tensor
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port does not run yet: a family other
-    than ``ssm`` and ``hybrid``, or learned position embeddings (neither
-    family's configs have them)."""
-    if cfg.family not in ("ssm", "hybrid") or cfg.pos_emb == "learned":
+    """Raise for a configuration the port does not run yet: the ``encdec``
+    and ``vlm`` families, or learned position embeddings (no config of the
+    ported families has them)."""
+    if cfg.family in ("encdec", "vlm") or cfg.pos_emb == "learned":
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}, pos_emb {cfg.pos_emb!r}) is "
             f"not ported to repro_torch yet; it is queued in ROADMAP.md, "
@@ -46,16 +49,18 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_dense_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
-    if cfg.family == "moe" or cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported to repro_torch yet; they "
-            f"are queued in ROADMAP.md, Queue 1")
-    return {
+    """Attention and an MLP, or an MoE when the config has experts
+    (``model.py:58-68``)."""
+    p = {
         "attn_norm": L.init_norm(pb, cfg),
         "attn": L.init_attention(pb, cfg),
         "mlp_norm": L.init_norm(pb, cfg),
-        "mlp": L.init_mlp(pb, cfg),
     }
+    if cfg.family == "moe" or cfg.n_experts > 0:
+        p["moe"] = L.init_moe(pb, cfg)
+    else:
+        p["mlp"] = L.init_mlp(pb, cfg)
+    return p
 
 
 def _init_mamba_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
@@ -70,10 +75,10 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     """The parameter tree of ``cfg`` in ``cfg.dtype`` on ``device``.
 
     ``generator`` is a seed or a ``torch.Generator`` on ``device``'s type;
-    ``device=None`` is the card (raises without one).  ``layers`` (ssm) is
-    a list of per-layer dicts; ``groups`` (hybrid) a list of ``n_layers //
-    attn_every`` lists of ``attn_every`` Mamba layers, and ``shared`` the
-    ONE attention/MLP block applied after every group.
+    ``device=None`` is the card (raises without one).  ``layers`` (dense,
+    moe, ssm) is a list of per-layer dicts; ``groups`` (hybrid) a list of
+    ``n_layers // attn_every`` lists of ``attn_every`` Mamba layers, and
+    ``shared`` the ONE attention/MLP block applied after every group.
     """
     check_ported(cfg)
     device = resolve_device(device)
@@ -86,7 +91,10 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = pb.param((cfg.d_model, cfg.vocab))
-    if cfg.family == "ssm":
+    if cfg.family in ("dense", "moe"):
+        p["layers"] = [_init_dense_layer(pb, cfg)
+                       for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
         p["layers"] = [_init_mamba_layer(pb, cfg)
                        for _ in range(cfg.n_layers)]
     else:                                                   # hybrid
@@ -119,15 +127,22 @@ def _mamba_block(p, x: Tensor, cfg: ModelConfig, *, collect_state=False):
 
 
 def _dense_block(p, x: Tensor, cfg: ModelConfig, q_pos: Tensor):
-    """Attention then MLP, each pre-normed and residual.  Returns the
-    output and the block's (K, V) (B, S, Kh, Dh), which prefill keeps."""
+    """Attention then the MLP or MoE, each pre-normed and residual
+    (``model.py:160-182``).  Returns the output, the MoE's aux loss (0.0
+    without one) and the block's (K, V) (B, S, Kh, Dh), which prefill
+    keeps."""
     hn = L.apply_norm(p["attn_norm"], x, cfg)
     q, k, v = L._qkv(p["attn"], hn, hn, cfg, q_pos, q_pos, True)
     o = L.attention_core(q, k, v, q_pos, q_pos, cfg, causal=True,
                          block_kv=cfg.attn_block_kv)
     x = x + L.out_proj(o, p["attn"]["wo"])
     h = L.apply_norm(p["mlp_norm"], x, cfg)
-    return x + L.apply_mlp(p["mlp"], h, cfg), (k, v)
+    aux = 0.0
+    if "moe" in p:
+        y, aux = L.apply_moe(p["moe"], h, cfg)
+    else:
+        y = L.apply_mlp(p["mlp"], h, cfg)
+    return x + y, aux, (k, v)
 
 
 def embed_tokens(p, cfg: ModelConfig, tokens: Tensor) -> Tensor:
@@ -150,7 +165,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             collect_kv: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux, kv).
 
-    ``kv`` (the prefill cache) when ``collect_kv``, else None:
+    ``aux`` is the MoE layers' summed aux loss (0.0 without MoE layers).
+    ``kv`` (the prefill cache) when ``collect_kv``, else None: a dense or
+    MoE model's ``{"self": (K, V)}``, each (L,B,S,Kh,Dh); an SSM model's
     ``{"states": {"ssm": (L,B,h,p,n), "conv": (L,B,K-1,ch)}}``, the Mamba
     layers in order (a hybrid model's group-major, group x attn_every +
     layer); a hybrid model adds ``"shared": (K, V)``, each (G,B,S,Kh,Dh),
@@ -158,20 +175,31 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     """
     check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)
-    states, kvs = [], []
+    b, s = tokens.shape
+    q_pos = torch.arange(s, dtype=torch.int32,
+                         device=tokens.device).expand(b, s)
+    states, kvs, aux = [], [], 0.0
+    if cfg.family in ("dense", "moe"):                  # model.py:243-251
+        for pl in params["layers"]:
+            x, a, kv = _dense_block(pl, x, cfg, q_pos)
+            aux = aux + a
+            if collect_kv:
+                kvs.append(kv)
+        logits = unembed(params, cfg, x)
+        kv = ({"self": tuple(torch.stack(t) for t in zip(*kvs))}
+              if collect_kv else None)
+        return logits, aux, kv
     if cfg.family == "ssm":
         groups, shared = [params["layers"]], None
     else:                                                   # hybrid
         groups, shared = params["groups"], params["shared"]
-        b, s = tokens.shape
-        q_pos = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
     for gp in groups:
         for pl in gp:
             x, st = _mamba_block(pl, x, cfg, collect_state=collect_kv)
             states.append(st)
         if shared is not None:
-            x, kv = _dense_block(shared, x, cfg, q_pos)
+            x, a, kv = _dense_block(shared, x, cfg, q_pos)
+            aux = aux + a
             if collect_kv:
                 kvs.append(kv)
     logits = unembed(params, cfg, x)
@@ -181,4 +209,4 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
                          for k in ("ssm", "conv")}}
         if shared is not None:
             kv["shared"] = tuple(torch.stack(t) for t in zip(*kvs))
-    return logits, 0.0, kv
+    return logits, aux, kv

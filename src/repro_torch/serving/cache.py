@@ -1,18 +1,19 @@
 """Decode-state (KV / SSM) caches — the families the port runs so far.
 
-The counterpart of ``repro/serving/cache.py``.  An SSM cache is O(1) in
-the sequence length: per layer a (B, H, P, N) float32 state and the last
-K-1 raw conv inputs, stacked over layers as in the reference, plus the
-scalar position.  A hybrid cache adds the shared attention block's K/V,
-one ring per application, (G, B, ring, Kh, Dh).
+The counterpart of ``repro/serving/cache.py``.  A dense or MoE cache
+holds every layer's K/V ring, ``k``/``v`` (L, B, ring, Kh, Dh).  An SSM
+cache is O(1) in the sequence length: per layer a (B, H, P, N) float32
+state and the last K-1 raw conv inputs, stacked over layers as in the
+reference, plus the scalar position.  A hybrid cache adds the shared
+attention block's K/V, one ring per application, (G, B, ring, Kh, Dh).
 
 KV caches are RING buffers of length ``ring``: the cache length, or the
 decode/sliding window when that is shorter.  Position p lives in slot
 ``p % ring``, and ``kv_pos`` (ring,) records which absolute position
 occupies each slot (-1 = empty); it drives the attention mask, so window
 and causal semantics survive wrap-around.  Batched decoding is
-position-aligned (one scalar ``pos`` per cache).  The dense, MoE, VLM and
-enc-dec caches wait for their families (ROADMAP.md, Queue 1).
+position-aligned (one scalar ``pos`` per cache).  The VLM and enc-dec
+caches wait for their families (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -55,19 +56,21 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: Device = None) -> Cache:
     """An empty cache at ``pos`` 0 on ``device`` (``None``: the card).
 
-    ``cache_len`` bounds the sequence; the SSM states do not depend on it.
+    ``cache_len`` bounds the sequence; the SSM states do not depend on it,
+    and a ring holds ``ring_len(cfg, cache_len)`` slots.
     """
     check_ported(cfg)
     device = resolve_device(device)
     pos = torch.zeros((), dtype=torch.int32, device=device)
-    states = _ssm_states(cfg, cfg.n_layers, batch, device)
     if cfg.family == "ssm":
-        return {"pos": pos, **states}
-    ring = ring_len(cfg, cache_len)                          # hybrid
-    return {"pos": pos,
+        return {"pos": pos, **_ssm_states(cfg, cfg.n_layers, batch, device)}
+    ring = ring_len(cfg, cache_len)
+    base = {"pos": pos,
             "kv_pos": torch.full((ring,), -1, dtype=torch.int32,
-                                 device=device),
-            **states,
+                                 device=device)}
+    if cfg.family in ("dense", "moe"):                   # cache.py:56-57
+        return {**base, **_kv(cfg, cfg.n_layers, batch, ring, device)}
+    return {**base, **_ssm_states(cfg, cfg.n_layers, batch, device),
             "shared": _kv(cfg, n_groups(cfg), batch, ring, device)}
 
 

@@ -1,10 +1,10 @@
 """Serving: prefill and single-token decode steps.
 
 The counterpart of ``repro/serving/engine.py`` for the families the port
-runs so far (``ssm``, ``hybrid``).  The reference's ``lax.scan`` over
-stacked layers and over decode steps are Python loops here; eager decoding
-launches a few dozen small kernels per layer and step (CUDA graphs are
-later work).
+runs so far (``dense``, ``moe``, ``ssm``, ``hybrid``).  The reference's
+``lax.scan`` over stacked layers and over decode steps are Python loops
+here; eager decoding launches a few dozen small kernels per layer and
+step (CUDA graphs are later work).
 
 Batched decoding is position-aligned (one scalar ``pos`` per cache); the
 continuous-batching driver (``serving/lm_driver.py``) packs requests into
@@ -45,8 +45,13 @@ def _attn_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor, vc: Tensor,
 
 
 def _ffn_decode(pl, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The MLP or MoE of one token (``engine.py:55-61``)."""
     h = L.apply_norm(pl["mlp_norm"], x, cfg)
-    return x + L.apply_mlp(pl["mlp"], h, cfg)
+    if "moe" in pl:
+        y, _ = L.apply_moe(pl["moe"], h, cfg)
+    else:
+        y = L.apply_mlp(pl["mlp"], h, cfg)
+    return x + y
 
 
 def _mamba_decode(pl, x: Tensor, st, cfg: ModelConfig):
@@ -82,27 +87,40 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     pos = cache["pos"]
     x = M.embed_tokens(params, cfg, token)                       # (B,1,D)
     new = dict(cache)
+    states = None
     if cfg.family == "ssm":
         x, states = _mamba_layers(params["layers"], x, cache, 0, cfg)
-    else:                                                        # hybrid
+    else:
         slot = torch.remainder(pos, cache["kv_pos"].shape[0]).reshape(1)
         kv_pos = cache["kv_pos"].index_copy(0, slot.long(), pos.reshape(1))
-        shared, every = params["shared"], cfg.attn_every
-        states, ks, vs = [], [], []
-        for g, gp in enumerate(params["groups"]):
-            x, st = _mamba_layers(gp, x, cache, g * every, cfg)
-            states += st
-            x, kc, vc = _attn_decode(shared, x, cfg, cache["shared"]["k"][g],
-                                     cache["shared"]["v"][g], pos, kv_pos,
-                                     slot)
-            x = _ffn_decode(shared, x, cfg)
-            ks.append(kc)
-            vs.append(vc)
         new["kv_pos"] = kv_pos
-        new["shared"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        ks, vs = [], []
+        if cfg.family in ("dense", "moe"):               # engine.py:111-119
+            for i, pl in enumerate(params["layers"]):
+                x, kc, vc = _attn_decode(pl, x, cfg, cache["k"][i],
+                                         cache["v"][i], pos, kv_pos, slot)
+                x = _ffn_decode(pl, x, cfg)
+                ks.append(kc)
+                vs.append(vc)
+            new["k"], new["v"] = torch.stack(ks), torch.stack(vs)
+        else:                                                    # hybrid
+            shared, every = params["shared"], cfg.attn_every
+            states = []
+            for g, gp in enumerate(params["groups"]):
+                x, st = _mamba_layers(gp, x, cache, g * every, cfg)
+                states += st
+                x, kc, vc = _attn_decode(shared, x, cfg,
+                                         cache["shared"]["k"][g],
+                                         cache["shared"]["v"][g], pos,
+                                         kv_pos, slot)
+                x = _ffn_decode(shared, x, cfg)
+                ks.append(kc)
+                vs.append(vc)
+            new["shared"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     logits = M.unembed(params, cfg, x)
-    new.update({k: torch.stack([st[k] for st in states])
-                for k in ("ssm", "conv")})
+    if states is not None:
+        new.update({k: torch.stack([st[k] for st in states])
+                    for k in ("ssm", "conv")})
     new["pos"] = pos + 1
     return logits, new
 
@@ -111,17 +129,23 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, cache_len: int):
     """tokens (B, S) -> (logits (B, S, V), cache ready for decode at pos=S).
 
     The cache has :func:`cache.init_cache`'s layout, filled from the
-    forward's final SSM states and (hybrid) the shared block's K/V packed
-    into rings.
+    forward's K/V packed into rings (dense, MoE: every layer's; hybrid: the
+    shared block's) and its final SSM states (ssm, hybrid).
     """
     s = tokens.shape[1]
     logits, _, kv = M.forward(params, cfg, tokens, collect_kv=True)
-    cc = {"pos": torch.full((), s, dtype=torch.int32, device=tokens.device),
-          "ssm": kv["states"]["ssm"],
-          "conv": kv["states"]["conv"].to(cfg.torch_dtype)}
-    if cfg.family == "hybrid":
+    cc = {"pos": torch.full((), s, dtype=torch.int32, device=tokens.device)}
+    if cfg.family != "ssm":
         ring = C.ring_len(cfg, cache_len)
         cc["kv_pos"] = C.ring_positions(s, ring, device=tokens.device)
+    if cfg.family in ("dense", "moe"):                   # engine.py:242-245
+        k, v = kv["self"]
+        cc["k"] = C.ring_pack(k.to(cfg.torch_dtype), ring)
+        cc["v"] = C.ring_pack(v.to(cfg.torch_dtype), ring)
+        return logits, cc
+    cc["ssm"] = kv["states"]["ssm"]
+    cc["conv"] = kv["states"]["conv"].to(cfg.torch_dtype)
+    if cfg.family == "hybrid":
         k, v = kv["shared"]
         cc["shared"] = {"k": C.ring_pack(k.to(cfg.torch_dtype), ring),
                         "v": C.ring_pack(v.to(cfg.torch_dtype), ring)}

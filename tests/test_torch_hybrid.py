@@ -166,17 +166,36 @@ def test_init_params_shapes_and_shared_once():
     assert tuple(sh["attn"]["wo"].shape) == (4, 16, 64)
     with pytest.raises(ValueError, match="divide"):
         M.init_params(cfg.scaled(attn_every=3), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M._init_dense_layer(None, cfg.scaled(n_experts=4))
+    # a shared block with experts gets an MoE in place of its MLP
+    pb = ParamBuilder(torch.Generator(), torch.float32, torch.device("cpu"))
+    moe = M._init_dense_layer(pb, cfg.scaled(n_experts=4, top_k=2))
+    assert "mlp" not in moe and tuple(moe["moe"]["w1"].shape) == (4, 64, 128)
+    for fam in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            M.init_params(cfg.scaled(family=fam), 0, device="cpu")
 
 
 def test_other_families_still_raise():
+    """The enc-dec and VLM families and learned position embeddings raise,
+    and their archs are not registered; dense and MoE now build."""
     cfg = get_config(ARCH, smoke=True)
-    for fam in ("dense", "moe", "encdec", "vlm"):
+    for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             M.init_params(cfg.scaled(family=fam), 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            C.init_cache(cfg.scaled(family=fam), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         C.init_cache(cfg.scaled(pos_emb="learned"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.init_params(cfg.scaled(pos_emb="learned"), 0, device="cpu")
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+        assert arch not in ARCHS
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
+    for fam in ("dense", "moe"):
+        p = M.init_params(cfg.scaled(family=fam, n_experts=4 * (fam == "moe"),
+                                     top_k=2), 0, device="cpu")
+        assert len(p["layers"]) == cfg.n_layers
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.conv1d import ops as conv_ops
 from repro_torch.models import model as M
@@ -96,14 +96,20 @@ def test_config_converter_renames_and_rejects():
 
 
 def test_registry_lists_only_ported_families():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen3-1.7b")
-    dense = get_config(ARCH, smoke=True).scaled(family="dense", n_heads=4,
-                                                n_kv_heads=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(dense, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(dense, 1, 8, device="cpu")
+    """The enc-dec and VLM archs are not registered, and their families
+    (and learned position embeddings) raise in init_params and init_cache;
+    the dense and MoE archs are registered."""
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
+    assert {"qwen3-1.7b", "granite-moe-3b-a800m"} <= set(ARCHS)
+    base = get_config(ARCH, smoke=True).scaled(n_heads=4, n_kv_heads=4)
+    for cfg in (base.scaled(family="encdec"), base.scaled(family="vlm"),
+                base.scaled(family="dense", pos_emb="learned")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            M.init_params(cfg, 0, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_params_carried_across_exactly(pair):
