@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives ten
+each kernel against its plain torch version on the card, and drives twelve
 paths, each with the launch counters set to 0 just before it and read just
 after:
 
@@ -51,11 +51,24 @@ after:
 * ``phi3-mini-3.8b``, ``starcoder2-7b`` and ``chatglm3-6b`` at full width
   and depth and ``mixtral-8x22b`` at full width cut to 4 of its 56 layers
   (281 GB in bf16 whole), one at a time: the parameter count, a 4 x 512
-  prefill with finite logits and 8 greedy decode steps, timed.
+  prefill with finite logits and 8 greedy decode steps, timed;
+* serving the enc-dec ``whisper-large-v3`` (32 + 32 layers,
+  1,645,061,120 parameters) and the VLM ``llama-3.2-vision-11b`` (40 self
+  layers and 8 tanh-gated cross layers, 11,520,053,256 parameters) as the
+  dense model is served, each request with its own memory — (1500, 1280)
+  frame or (1600, 4096) patch embeddings, the stub front ends' output;
+  before each, its cut at full width in float32 (2 + 2 layers; 10 layers,
+  two groups, the gates set non-zero) holds prefill-then-decode against
+  forward through a full and a wrapped ring, and a planted fault (another
+  memory) must move its logits; the profile splits out the
+  cross-attention's and the encoder's device time.
 
-The dense and MoE families reach no Pallas kernel in the reference, so
-their three phases launch no kernel of the port, and each checks that the
-conv kernel was launched no time.
+Phase vet also plants one retake: the first trace of one full-size audit
+loses its markers, and the audit's launches must count the retaken call.
+
+The dense, MoE, enc-dec and VLM families reach no Pallas kernel in the
+reference, so their five phases launch no kernel of the port, and each
+checks that the conv kernel was launched no time.
 
 It times every kernel with CUDA events at the paths' shapes and prints the
 card, a ``kernels`` JSON line and a final contract line.  Every phase
@@ -94,6 +107,8 @@ ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "zamba2-2.7b"
 DENSE_ARCH = "qwen3-1.7b"
 MOE_ARCH = "granite-moe-3b-a800m"
+ENCDEC_ARCH = "whisper-large-v3"
+VLM_ARCH = "llama-3.2-vision-11b"
 #: the same logits against use_kernels=False, whose conv (the reference's
 #: oracle) rounds to bf16 after every tap: a wider limit in bf16.  Through
 #: the hybrid cut's twelve layers and two attention blocks those per-tap
@@ -105,16 +120,24 @@ LM_TOL_OFF = {ARCH: {"float32": 1e-4, "bfloat16": 0.25},
 #: each served model's parameter count, as the reference counts it
 #: (``jax.eval_shape`` of its ``init_params`` gives the same)
 N_PARAMS = {ARCH: 2_702_579_200, HYBRID_ARCH: 2_422_670_240,
-            DENSE_ARCH: 1_720_574_976, MOE_ARCH: 3_298_793_472}
+            DENSE_ARCH: 1_720_574_976, MOE_ARCH: 3_298_793_472,
+            ENCDEC_ARCH: 1_645_061_120, VLM_ARCH: 11_520_053_256}
 #: the layers of each phase's cut model (Zamba2: two groups of six, so the
-#: shared block is applied twice)
-LM_CUT = {ARCH: 2, HYBRID_ARCH: 12, DENSE_ARCH: 2, MOE_ARCH: 2}
+#: shared block is applied twice; the VLM: two groups of five self layers,
+#: so two gated cross layers)
+LM_CUT = {ARCH: 2, HYBRID_ARCH: 12, DENSE_ARCH: 2, MOE_ARCH: 2,
+          ENCDEC_ARCH: 2, VLM_ARCH: 10}
 #: what else the cut changes: the MoE's cut runs drop-free, as the
-#: reference's smoke configs do, so decode equals forward
-CUT_FIELDS = {MOE_ARCH: {"capacity_factor": 8.0}}
+#: reference's smoke configs do, so decode equals forward; Whisper's keeps
+#: 2 of its 32 encoder layers too
+CUT_FIELDS = {MOE_ARCH: {"capacity_factor": 8.0},
+              ENCDEC_ARCH: {"n_enc_layers": 2}}
 #: prefill-then-decode against forward in float32: the reference's own
 #: tolerances (tests/test_arch_smoke.py:83), relative to 1 + |want|
-RING_TOL = {"hybrid": 2e-2, "dense": 1e-2, "moe": 1e-2}
+RING_TOL = {"hybrid": 2e-2, "dense": 1e-2, "moe": 1e-2, "encdec": 1e-2,
+            "vlm": 1e-2}
+#: the families whose requests carry a memory (frame or patch embeddings)
+MEMORY_FAMILIES = ("encdec", "vlm")
 RING_PROMPT, RING_WINDOW = 100, 48
 #: phase lm-variants: (arch, layers or None for full depth, parameters as
 #: the reference counts them, what the config exercises).  Mixtral whole is
@@ -137,6 +160,9 @@ OUT_DIR = ROOT / "chiprun_out"
 SPIN_CYCLES = 2_000_000
 #: traces of each kind in phase vet's check of the profiler
 TRACE_CHECK_N = 200
+#: the full-size audit of phase vet whose first trace loses its markers on
+#: purpose, so the retake path runs and is checked in every run
+PLANTED_RETAKE = ("box-2d1r", "cuda_sptc")
 #: device names of the three stencil kernels
 STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
 
@@ -306,16 +332,25 @@ def _model_regions():
     """Open a profiler region around the LM's attention core (prefill's
     ``attention_core``, decode's ``decode_attention``: scores, softmax and
     PV, what a fused attention kernel would replace), around the decode
-    step's ring write (``write_token``) and around the MoE layer
-    (``apply_moe``: routing, dispatch, experts, combine), so ``_profile``
-    can split their device time out."""
+    step's ring write (``write_token``), around the MoE layer
+    (``apply_moe``: routing, dispatch, experts, combine), around the
+    cross-attention over a memory (prefill's ``_cross_attention`` and
+    ``_cross_kv``, decode's ``_cross_attn_decode``: projections and core)
+    and around Whisper's encoder (``encode``), so ``_profile`` can split
+    their device time out.  Regions nest: an attention core inside a
+    cross-attention or the encoder counts in both."""
     import torch
     from repro_torch.models import layers
-    from repro_torch.serving import cache
+    from repro_torch.models import model
+    from repro_torch.serving import cache, engine
     targets = ((layers, "attention_core", "attention"),
                (layers, "decode_attention", "attention"),
                (cache, "write_token", "ring_write"),
-               (layers, "apply_moe", "moe"))
+               (layers, "apply_moe", "moe"),
+               (model, "_cross_attention", "cross"),
+               (engine, "_cross_kv", "cross"),
+               (engine, "_cross_attn_decode", "cross"),
+               (model, "encode", "encode"))
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
     def wrap(fn, name):
@@ -326,16 +361,17 @@ def _model_regions():
     for mod, attr, name in targets:
         setattr(mod, attr, wrap(getattr(mod, attr), name))
     try:
-        yield ("attention", "ring_write", "moe")
+        yield ("attention", "ring_write", "moe", "cross", "encode")
     finally:
         for mod, attr, fn in kept:
             setattr(mod, attr, fn)
 
 
-def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
+def _ring_check(params, cfg, toks, phase: str, smi: str, mem=None) -> dict:
     """Prefill S tokens, then decode token S, against ``forward``'s logits
     at position S (float32, within the family's ``RING_TOL`` relative to
-    1 + |forward|):
+    1 + |forward|), both given the memory ``mem`` where the family reads
+    one:
     once with a ring as long as the cache, once with sliding_window =
     decode_window = ``RING_WINDOW`` < S, where the ring wraps (the forward
     masks to the same window, so both see the same keys)."""
@@ -347,8 +383,8 @@ def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
     for window in (None, RING_WINDOW):
         c = cfg if window is None else cfg.scaled(sliding_window=window,
                                                   decode_window=window)
-        full = M.forward(params, c, toks)[0][:, s]
-        _, cc = E.prefill(params, c, toks[:, :s], s + 16)
+        full = M.forward(params, c, toks, memory=mem)[0][:, s]
+        _, cc = E.prefill(params, c, toks[:, :s], s + 16, memory=mem)
         ring = int(cc["kv_pos"].shape[0])
         step, cc2 = E.decode_step(params, c, cc, toks[:, s:])
         if int(cc2["pos"]) != s + 1:
@@ -357,7 +393,7 @@ def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
                "max_abs_err": _err(step[:, 0], full, tol),
                "rel_err": _rel(step[:, 0], full), "tol": tol}
         out["wrapping" if window else "full"] = row
-        print(f"phase {phase} {cfg.name} cut to {cfg.n_layers} layers, "
+        print(f"phase {phase} {cfg.name} cut to {_layers(cfg)}, "
               f"float32: prefill {s} tokens then decode token {s} against "
               f"forward at position {s}, ring {ring} slots"
               f"{' (wrapped)' if row['wraps'] else ''}"
@@ -366,6 +402,35 @@ def _ring_check(params, cfg, toks, phase: str, smi: str) -> dict:
     if not out["wrapping"]["wraps"]:
         raise AssertionError("the ring check did not wrap the ring")
     return out
+
+
+def _layers(cfg) -> str:
+    """A config's depth in words: "2 + 2 layers" for an encoder-decoder."""
+    enc = f"{cfg.n_enc_layers} + " if cfg.family == "encdec" else ""
+    return f"{enc}{cfg.n_layers} layers"
+
+
+def _memory(cfg, rng, batch: int = 0):
+    """N(0, 1) float32 memory rows (frames or image tokens) from ``rng``:
+    one request's (rows, D), or (batch, rows, D); None for a family that
+    reads none."""
+    rows = {"encdec": cfg.n_frames, "vlm": cfg.n_img_tokens}.get(cfg.family)
+    if rows is None:
+        return None
+    import torch
+    shape = ((batch,) if batch else ()) + (rows, cfg.d_model)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+
+def _open_gates(params, rng) -> list:
+    """Set a VLM's tanh gates (zero at init, which hides the whole cross
+    path) to values in [0.5, 1.5] with random signs; returns them."""
+    gates = []
+    for cp in params.get("cross", []):
+        g = float(rng.uniform(0.5, 1.5) * rng.choice([-1.0, 1.0]))
+        cp["attn"]["gate"].fill_(g)
+        gates.append(g)
+    return gates
 
 
 def _full_depth_conv(params, cfg, batch0, logits, tag: str) -> dict:
@@ -433,7 +498,10 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     ``cut`` layers: for a family with Mamba layers it holds the conv kernel
     against its plain version in the model; for a family with attention,
     prefill-then-decode against forward.  A family without Mamba layers
-    (dense, MoE) must launch the conv kernel no time."""
+    (dense, MoE, enc-dec, VLM) must launch the conv kernel no time.  The
+    enc-dec and VLM families get a memory per request (frames, patches);
+    their cut also plants a fault, another memory, which must move the
+    logits, and the VLM's cut opens its gates."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.conv1d import ops as conv_ops
@@ -457,16 +525,26 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
                                        use_kernels=True,
                                        **CUT_FIELDS.get(arch, {}))
         p2 = M.init_params(cfg2, 1, device=dev)
+        gates = _open_gates(p2, rng)
         ring_toks = torch.as_tensor(
             rng.integers(0, cfg2.vocab, (2, RING_PROMPT + 1)), device=dev)
+        ring_mem = _memory(cfg2, rng, 2)
+        if ring_mem is not None:
+            ring_mem = ring_mem.to(dev)
         conv_ops.conv1d_causal.launches = 0
-        out["ring"] = _ring_check(p2, cfg2, ring_toks, phase, smi)
+        out["ring"] = _ring_check(p2, cfg2, ring_toks, phase, smi,
+                                  mem=ring_mem)
+        if ring_mem is not None:
+            out["memory_fault"] = _memory_fault(p2, cfg2, ring_toks,
+                                                ring_mem, tag, smi)
         if conv_ops.conv1d_causal.launches:
             raise AssertionError(f"the {family} cut launched the conv kernel "
                                  f"{conv_ops.conv1d_causal.launches} times")
-        out["cut_float32"] = {"conv1d_launches": 0,
+        out["cut_float32"] = {"conv1d_launches": 0, "n_layers": cut,
                               **CUT_FIELDS.get(arch, {})}
-        del p2, ring_toks
+        if gates:
+            out["cut_float32"]["gates"] = gates
+        del p2, ring_toks, ring_mem
     # the config cut to `cut` layers: the kernel against its plain version
     # in the same model, against use_kernels=False, and a planted fault
     # (the plain conv with its taps shifted by one) that the first check
@@ -528,21 +606,23 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     params = M.init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     n_params = count_params(params)
-    print(f"{tag}: {n_params:,} parameters ({cfg.dtype}, {cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}) drawn on the card in "
+    print(f"{tag}: {n_params:,} parameters ({cfg.dtype}, {_layers(cfg)}, "
+          f"d_model {cfg.d_model}) drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     if n_params != N_PARAMS[arch]:
         raise AssertionError(f"{n_params:,} parameters, want "
                              f"{N_PARAMS[arch]:,}")
     prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, PROMPT_LEN),
                                dtype=torch.int32) for _ in range(N_REQUESTS)]
+    mems = [_memory(cfg, rng) for _ in range(N_REQUESTS)]
     cache_len = PROMPT_LEN + NEW_TOKENS
     driver = GenerateDriver(params, cfg, cache_len=cache_len, autostart=False,
                             policy=BatchPolicy(max_batch=MAX_BATCH,
                                                max_wait_ms=5.0))
     conv_ops.conv1d_causal.launches = 0
     t0 = time.perf_counter()
-    futs = [driver.submit(p, NEW_TOKENS) for p in prompts]
+    futs = [driver.submit(p, NEW_TOKENS, memory=m)
+            for p, m in zip(prompts, mems)]
     driver.start()
     toks_out = [f.result() for f in futs]
     wall = time.perf_counter() - t0
@@ -558,7 +638,10 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
         raise AssertionError(f"{batches} batches, {launches} conv1d launches "
                              f"(want {n_mamba} per prefill)")
     print(f"{tag} main path: served {N_REQUESTS} requests of {PROMPT_LEN} "
-          f"tokens, {NEW_TOKENS} new tokens each, in {wall:.2f} s "
+          f"tokens"
+          + (f" with a {tuple(mems[0].shape)} memory each"
+             if mems[0] is not None else "")
+          + f", {NEW_TOKENS} new tokens each, in {wall:.2f} s "
           f"({N_REQUESTS * NEW_TOKENS / wall:.1f} new tok/s), batches "
           f"{batches}, occupancy {stats['batch_occupancy']}, p50 "
           f"{stats['latency']['p50_ms']:.0f} ms, p99 "
@@ -569,8 +652,11 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     # (Mamba layers) the full depth with the plain conv; an MoE's routing
     # is recorded to count the choices its capacity drops
     batch0 = torch.stack(prompts[:MAX_BATCH]).to(dev)
+    mem0 = (torch.stack(mems[:MAX_BATCH]).to(dev)
+            if mems[0] is not None else None)
+    del mems
     with _moe_keeps() as keeps:
-        logits, cc = E.prefill(params, cfg, batch0, cache_len)
+        logits, cc = E.prefill(params, cfg, batch0, cache_len, memory=mem0)
     if tuple(logits.shape) != (MAX_BATCH, PROMPT_LEN, cfg.vocab) or \
             logits.dtype != torch.float32 or not bool(logits.isfinite().all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -601,7 +687,7 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cc = E.prefill(params, cfg, batch0, cache_len)
+        logits, cc = E.prefill(params, cfg, batch0, cache_len, memory=mem0)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     prefill_ms = statistics.median(times)
@@ -621,7 +707,8 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
           f" tok/s); decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | "
           f"card {smi}")
     with _model_regions() as regions:
-        prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len),
+        prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len,
+                                          memory=mem0),
                         f"{arch} prefill {MAX_BATCH} x {PROMPT_LEN}", smi,
                         regions=regions)
         dec = _profile(lambda: E.decode_step(params, cfg, cc, tok),
@@ -648,9 +735,13 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
         print(f"{tag}: conv share of prefill not measured (the profile "
               f"holds no conv1d_causal_kernel row)")
     if family != "ssm":
-        # prefill writes no ring slot: its K/V is packed once
-        pre = ("attention", "moe") if family == "moe" else ("attention",)
-        regs_dec = regions if family == "moe" else regions[:2]
+        # prefill writes no ring slot: its K/V is packed once; the encoder
+        # runs in prefill only
+        extra = {"moe": ("moe",), "encdec": ("cross", "encode"),
+                 "vlm": ("cross",)}.get(family, ())
+        pre = ("attention",) + extra
+        regs_dec = ("attention", "ring_write") + tuple(
+            r for r in extra if r != "encode")
         for name, pr, regs in (("prefill", prof, pre),
                                ("decode step", dec, regs_dec)):
             for reg in regs:
@@ -673,10 +764,30 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
                 "prefill_tok_s": MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3,
                 "decode_ms_per_step": decode_ms, "n_layers": cfg.n_layers,
                 "seconds": time.perf_counter() - t_phase})
-    del params, cc, driver
+    del params, cc, driver, mem0
     torch.cuda.empty_cache()
     print(f"phase {phase}: {out['seconds']:.1f} s")
     return out
+
+
+def _memory_fault(params, cfg, toks, mem, tag: str, smi: str) -> dict:
+    """A planted fault: the cut's forward with its memory replaced by
+    another seed's draw must move the logits by more than the ring check's
+    tolerance (relative to 1 + |logits|), or that check could not see a
+    broken cross path."""
+    from repro_torch.models import model as M
+    tol = RING_TOL[cfg.family]
+    other = _memory(cfg, np.random.default_rng(99), mem.shape[0]).to(
+        mem.device)
+    want = M.forward(params, cfg, toks, memory=mem)[0]
+    rel = _rel(M.forward(params, cfg, toks, memory=other)[0], want)
+    print(f"{tag} cut to {_layers(cfg)}, float32: planted fault (the memory "
+          f"replaced by another seed's draw): logits moved by max rel "
+          f"{rel:.3g} (must exceed tol {tol}) | card {smi}")
+    if not rel > tol:
+        raise AssertionError(f"another memory moves the logits by {rel:.3g}, "
+                             f"within tol {tol}: the cross path is not seen")
+    return {"rel_err": rel, "tol": tol}
 
 
 def _phase_variants(dev, smi: str) -> dict:
@@ -1123,6 +1234,7 @@ def _phase_vet(dev, smi: str, randn) -> dict:
 
     out: dict = {}
     t_phase = time.perf_counter()
+    traces0 = dict(lowering.TRACE_STATS)
     cfg = VetConfig(root=ROOT)
     baseline = Baseline.load(cfg.baseline_path())
     tree = [ROOT / "src" / "repro_torch"]
@@ -1209,7 +1321,7 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         x = randn(*(s + 2 * r for s in dims), seed=41 * spec.ndim + r)
         direct = StencilEngine(spec, "direct", device=dev)
         want, want_small = direct(x), direct(x_small)
-        audits, errs = {}, {}
+        audits, errs, calls = {}, {}, {}
         for b in ("cuda_gemm", "cuda_sptc"):
             eng = StencilEngine(spec, b, device=dev)
             per_call = _launches_per_call(eng)
@@ -1222,14 +1334,13 @@ def _phase_vet(dev, smi: str, randn) -> dict:
             errs[b] = _err(full.out, want, TOL)
             _err(small.out, want_small, TOL)
             full.out = small.out = None
-            if counter.launches - n0 != 2 * per_call or \
-                    full.counts["programs"] != per_call or \
-                    full.counts["kernels"] != per_call:
-                raise AssertionError(
-                    f"{spec.name} {b}: {counter.launches - n0} launches in "
-                    f"two calls, {full.counts['programs']} regions and "
-                    f"{full.counts['kernels']} kernels in one, for "
-                    f"{per_call} row ops")
+            calls[b] = counter.launches - n0
+            _check_audit_launches(f"{spec.name} {b}", calls[b], full,
+                                  per_call)
+            if (spec.name, b) == PLANTED_RETAKE:
+                out["planted_retake"] = _planted_retake(
+                    eng, x, want, counter, per_call, full,
+                    f"{spec.name} {b}", smi)
             if full.counts != probe:
                 raise AssertionError(
                     f"{spec.name} {b}: outside-kernel counts depend on the "
@@ -1249,9 +1360,12 @@ def _phase_vet(dev, smi: str, randn) -> dict:
             row[b] = dict(a.counts, kernel_ms=a.device_ms["kernel"],
                           outside_ms=a.device_ms["outside"],
                           kernel_share=a.kernel_share,
-                          max_abs_err_vs_direct=errs[b])
+                          max_abs_err_vs_direct=errs[b],
+                          launches=calls[b], attempts=a.attempts)
             print(f"phase vet {spec.name} {'x'.join(map(str, dims))} {b}: "
                   + " ".join(f"{k}={v}" for k, v in a.counts.items())
+                  + f" | launches {calls[b]} in 1 + {a.attempts} calls "
+                  f"(retaken {a.attempts - 1})"
                   + f" | device kernel {a.device_ms['kernel']:.3f} ms, "
                   f"outside {a.device_ms['outside']:.3f} ms, kernel share "
                   f"{100 * a.kernel_share:.1f}% (same counts at "
@@ -1268,15 +1382,65 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         out["suite"][spec.name] = row
         del x, want
         torch.cuda.empty_cache()
+    if "planted_retake" not in out:
+        raise AssertionError(f"phase vet planted no retake: no audit of "
+                             f"{PLANTED_RETAKE}")
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     for k, n in out["launches"].items():
         if n == 0:
             raise AssertionError(f"phase vet never launched {k}")
     out["seconds"] = time.perf_counter() - t_phase
-    out["profiler_traces"] = dict(lowering.TRACE_STATS)
+    out["profiler_traces"] = {k: n - traces0[k]
+                              for k, n in lowering.TRACE_STATS.items()}
     print(f"phase vet: {out['seconds']:.1f} s, kernel launches "
-          f"{out['launches']}; card traces {out['profiler_traces']}")
+          f"{out['launches']}; card traces {out['profiler_traces']['traces']}"
+          f", retaken {out['profiler_traces']['retaken']} (1 planted)")
     return out
+
+
+def _check_audit_launches(label: str, launches: int, audit, per_call: int):
+    """An audited call's launches: ``per_call`` in the warm-up and in each
+    of the ``audit.attempts`` traced runs (a retaken trace runs the call
+    again), and ``per_call`` regions and kernels in the trace kept."""
+    calls = 1 + audit.attempts
+    if launches != calls * per_call or \
+            audit.counts["programs"] != per_call or \
+            audit.counts["kernels"] != per_call:
+        raise AssertionError(
+            f"{label}: {launches} launches in {calls} calls (1 warm-up, "
+            f"{audit.attempts} traced), {audit.counts['programs']} regions "
+            f"and {audit.counts['kernels']} kernels in the trace kept, for "
+            f"{per_call} row ops")
+
+
+def _planted_retake(eng, x, want, counter, per_call: int, unplanted,
+                    label: str, smi: str) -> dict:
+    """The audit of ``eng`` on ``x`` again, with the first trace's markers
+    hidden (``vet.lowering.planted_lost_head``), as when the profiler loses
+    a trace's head: the trace must be retaken, the launches must count the
+    retake, and the trace kept must hold the unplanted audit's counts and
+    the direct engine's output."""
+    from repro_torch.vet import lowering
+    n0 = counter.launches
+    with lowering.planted_lost_head():
+        a = lowering.audit_call(eng, x)
+    launches = counter.launches - n0
+    err = _err(a.out, want, TOL)
+    a.out = None
+    if a.attempts < 2:
+        raise AssertionError(f"{label}: a trace without its markers was not "
+                             f"retaken ({a.attempts} attempt)")
+    _check_audit_launches(f"{label} (planted retake)", launches, a, per_call)
+    if a.counts != unplanted.counts:
+        raise AssertionError(f"{label}: the retaken audit counts {a.counts}, "
+                             f"the unplanted one {unplanted.counts}")
+    print(f"phase vet planted retake {label}: first trace's markers hidden, "
+          f"retaken {a.attempts - 1} (1 planted), launches {launches} = "
+          f"(1 + {a.attempts}) x {per_call}, counts of the trace kept equal "
+          f"the unplanted audit's, max |err| vs direct {err:.3g} | card {smi}")
+    return {"attempts": a.attempts, "launches": launches,
+            "per_call": per_call, "counts": a.counts,
+            "max_abs_err_vs_direct": err}
 
 
 HALO_MESHES = ((2,), (2, 2))
@@ -1294,7 +1458,7 @@ def _device_ops(fn) -> list:
     from repro_torch.kernels.common import KERNEL_REGIONS
     from repro_torch.vet.lowering import is_marker, trace_device
     fn()
-    events, _ = trace_device(fn, torch.device("cuda", 0))
+    events, _, _ = trace_device(fn, torch.device("cuda", 0))
     return sorted((e.time_range.start,
                    (e.time_range.end - e.time_range.start) / 1e3, e.name)
                   for e in events
@@ -2071,9 +2235,16 @@ def main() -> int:
 
     # -- phase lm-variants: the other dense and MoE configs at full width ---
     results["lm_variants"] = _phase_variants(dev, smi)
-    # every LM phase's main path (the dense and MoE phases launch none)
+
+    # -- phases lm-encdec, lm-vlm: whisper-large-v3, llama-3.2-vision-11b ---
+    encdec = _phase_lm(dev, smi, ENCDEC_ARCH, "lm-encdec", LM_CUT[ENCDEC_ARCH])
+    results["lm_encdec"] = encdec
+    vlm = _phase_lm(dev, smi, VLM_ARCH, "lm-vlm", LM_CUT[VLM_ARCH])
+    results["lm_vlm"] = vlm
+    # every LM phase's main path (the phases without Mamba layers launch
+    # none)
     launches["conv1d_causal"] = sum(
-        ph["conv1d_launches"] for ph in (lm, hybrid, dense, moe))
+        ph["conv1d_launches"] for ph in (lm, hybrid, dense, moe, encdec, vlm))
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

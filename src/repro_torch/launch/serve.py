@@ -8,7 +8,11 @@
 ``qwen3-1.7b``, ``phi3-mini-3.8b``, ``starcoder2-7b`` and ``chatglm3-6b``,
 the MoE ``granite-moe-3b-a800m`` and ``mixtral-8x22b`` (whose 281 GB in
 bf16 no single card holds: on one card, ``--smoke`` only), the SSM
-``mamba2-2.7b`` and the hybrid ``zamba2-2.7b``.
+``mamba2-2.7b``, the hybrid ``zamba2-2.7b``, the enc-dec
+``whisper-large-v3`` and the VLM ``llama-3.2-vision-11b``.  Each request
+of the last two carries its own memory: N(0, 1) frame embeddings
+(n_frames, d_model) or patch embeddings (n_img_tokens, d_model), the stub
+front ends' output.
 
 The counterpart of ``repro/launch/serve.py``, with the same flags and
 printout plus ``--device`` (default: the card; ``cpu`` runs the kernels'
@@ -16,7 +20,7 @@ plain versions).  The model runs with ``use_kernels`` on.  Requests are
 submitted one prompt at a time — as a front end would deliver them — and
 the :class:`repro_torch.serving.GenerateDriver` packs them into
 position-aligned batches.  Weights are random, drawn from seed 0 on the
-device; prompts are drawn from seed 1 on the host.
+device; prompts and memories are drawn from seed 1 on the host.
 """
 from __future__ import annotations
 
@@ -34,11 +38,18 @@ from repro_torch.serving import BatchPolicy, GenerateDriver
 
 
 def _request_stream(cfg, n_requests, prompt_len, seed=1):
-    """Per-request prompts, like a front end."""
+    """Per-request ``(prompt, memory)``, like a front end: the memory is
+    None but for the enc-dec (frames) and VLM (patches) families."""
     rng = np.random.default_rng(seed)
+    n_mem = {"encdec": cfg.n_frames, "vlm": cfg.n_img_tokens}.get(cfg.family)
     for _ in range(n_requests):
-        yield torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len),
-                              dtype=torch.int32)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, prompt_len),
+                                 dtype=torch.int32)
+        mem = None
+        if n_mem is not None:
+            mem = torch.from_numpy(rng.standard_normal(
+                (n_mem, cfg.d_model), dtype=np.float32))
+        yield prompt, mem
 
 
 def main(argv=None):
@@ -75,9 +86,9 @@ def main(argv=None):
     driver = GenerateDriver(params, cfg, cache_len=cache_len, policy=policy,
                             greedy=args.greedy, autostart=False)
     t0 = time.monotonic()
-    futures = [driver.submit(prompt, args.new_tokens)
-               for prompt in _request_stream(cfg, n_requests,
-                                             args.prompt_len)]
+    futures = [driver.submit(prompt, args.new_tokens, memory=mem)
+               for prompt, mem in _request_stream(cfg, n_requests,
+                                                  args.prompt_len)]
     driver.start()
     results = [f.result() for f in futures]
     dt = time.monotonic() - t0

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.model import Params, check_ported, n_groups
+from repro_torch.models.model import FAMILY_KEYS, Params
+from repro_torch.models.nn import tree_leaves
 
 #: reference field name -> port field name
 RENAMED = {"use_pallas": "use_kernels"}
@@ -56,8 +57,10 @@ def _tree(tree: Mapping[str, Any], dtype, device) -> Dict[str, Any]:
             else _tensor(v, dtype, device) for k, v in tree.items()}
 
 
-def _unstack(tree: Dict[str, Any], n: int) -> list:
+def _unstack(tree: Dict[str, Any]) -> list:
     """A tree of ``(n, ...)`` leaves -> ``n`` trees of its slices."""
+    n = len(next(iter(tree_leaves(tree))))
+
     def one(sub, i):
         return {k: one(v, i) if isinstance(v, dict) else v[i]
                 for k, v in sub.items()}
@@ -68,24 +71,25 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device: Device = None) -> Params:
     """The port's parameters from the reference's parameter tree.
 
-    Stacked ``(L, ...)`` ``layers`` leaves are split at L only into the
-    port's list of per-layer dicts (an MoE layer keeps its ``(E, d, f)``
-    expert tensors whole), ``(G, E, ...)`` ``groups`` leaves into a list of G
-    lists of E; every other subtree (a hybrid model's ONE ``shared`` block)
-    is carried leaf for leaf.  Every tensor is cast to ``cfg.dtype`` (as
-    the reference casts them at use) on ``device`` (``None``: the card).
+    Stacked ``(L, ...)`` leaves (``layers``; a VLM's ``cross``, whose
+    scalar gates stack to ``(G,)``; an enc-dec model's ``enc_layers`` and
+    ``dec_layers``) are split at their leading axis only into the port's
+    list of per-layer dicts (an MoE layer keeps its ``(E, d, f)`` expert
+    tensors whole), ``(G, E, ...)`` ``groups`` leaves into a list of G
+    lists of E; every other subtree (a hybrid model's ONE ``shared`` block,
+    the ``pos`` and ``enc_pos`` tables) is carried leaf for leaf.  Every
+    tensor is cast to ``cfg.dtype`` (as the reference casts them at use)
+    on ``device`` (``None``: the card).
     """
-    check_ported(cfg)
+    if cfg.family not in FAMILY_KEYS:
+        raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     dtype = cfg.torch_dtype
-    stacked = ("layers", "groups")
+    stacked = FAMILY_KEYS[cfg.family]
     out = _tree({k: v for k, v in tree.items() if k not in stacked}, dtype,
                 device)
-    if "layers" in tree:
-        out["layers"] = _unstack(_tree(tree["layers"], dtype, device),
-                                 cfg.n_layers)
-    if "groups" in tree:
-        groups = _unstack(_tree(tree["groups"], dtype, device),
-                          n_groups(cfg))
-        out["groups"] = [_unstack(g, cfg.attn_every) for g in groups]
+    for key in stacked:
+        layers = _unstack(_tree(tree[key], dtype, device))
+        out[key] = [_unstack(g) for g in layers] if key == "groups" \
+            else layers
     return out

@@ -9,16 +9,19 @@ The counterpart of ``repro/models/model.py``:
   hybrid   groups of `attn_every` mamba layers + one  (zamba2)
            weight-SHARED attention/MLP block applied
            after each group
+  encdec   encoder [norm->bidi-attn, norm->mlp] x Le  (whisper; conv frontend
+           decoder [self, cross, mlp] x L              stubbed to frame embeds)
+  vlm      groups of `cross_attn_every` self layers   (llama-3.2-vision; patch
+           after one gated cross-attn layer per group  embeds stubbed)
 
 The reference's ``lax.scan`` over stacked layer parameters is a Python loop
-over lists of per-layer parameter dicts (a hybrid model's ``groups`` is a
-list of lists); its sharding ``constrain`` is a no-op on one card and is
-dropped.  The enc-dec and VLM families wait in ROADMAP.md (Queue 1) and
-raise here.
+over lists of per-layer parameter dicts (a hybrid or VLM model's
+``groups`` is a list of lists); its sharding ``constrain`` is a no-op on
+one card and is dropped.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,20 +36,15 @@ Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port does not run yet: the ``encdec``
-    and ``vlm`` families, or learned position embeddings (no config of the
-    ported families has them)."""
-    if cfg.family in ("encdec", "vlm") or cfg.pos_emb == "learned":
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}, pos_emb {cfg.pos_emb!r}) is "
-            f"not ported to repro_torch yet; it is queued in ROADMAP.md, "
-            f"Queue 1")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+#: each family's keys of stacked (per-layer or per-group) parameters
+FAMILY_KEYS = {"dense": ("layers",), "moe": ("layers",), "ssm": ("layers",),
+               "hybrid": ("groups",), "vlm": ("groups", "cross"),
+               "encdec": ("enc_layers", "dec_layers")}
+
 
 def _init_dense_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
     """Attention and an MLP, or an MoE when the config has experts
@@ -61,6 +59,25 @@ def _init_dense_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
     else:
         p["mlp"] = L.init_mlp(pb, cfg)
     return p
+
+
+def _init_cross_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
+    """A VLM's cross-attention layer: tanh-gated attention (its ``gate``
+    starts at zero) and an MLP (``model.py:71-78``)."""
+    return {
+        "attn_norm": L.init_norm(pb, cfg),
+        "attn": L.init_attention(pb, cfg, cross=True),
+        "mlp_norm": L.init_norm(pb, cfg),
+        "mlp": L.init_mlp(pb, cfg),
+    }
+
+
+def _init_dec_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
+    """A Whisper decoder layer: self-attention, ungated cross-attention
+    over the encoder's output and the MLP (``model.py:139-148``)."""
+    return {**_init_dense_layer(pb, cfg),
+            "cross_norm": L.init_norm(pb, cfg),
+            "cross": L.init_attention(pb, cfg)}
 
 
 def _init_mamba_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
@@ -78,9 +95,14 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     ``device=None`` is the card (raises without one).  ``layers`` (dense,
     moe, ssm) is a list of per-layer dicts; ``groups`` (hybrid) a list of
     ``n_layers // attn_every`` lists of ``attn_every`` Mamba layers, and
-    ``shared`` the ONE attention/MLP block applied after every group.
+    ``shared`` the ONE attention/MLP block applied after every group.  A
+    VLM's ``groups`` are ``n_layers // cross_attn_every`` lists of
+    ``cross_attn_every`` dense layers, ``cross`` one gated cross layer per
+    group; an enc-dec model has ``enc_pos``, ``enc_layers``, ``enc_norm``
+    and ``dec_layers``.  ``pos`` is the learned position table.
     """
-    check_ported(cfg)
+    if cfg.family not in FAMILY_KEYS:
+        raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
@@ -91,26 +113,45 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = pb.param((cfg.d_model, cfg.vocab))
-    if cfg.family in ("dense", "moe"):
+    if cfg.pos_emb == "learned":
+        p["pos"] = pb.param((cfg.max_seq, cfg.d_model), scale=0.02)
+    fam = cfg.family
+    if fam in ("dense", "moe"):
         p["layers"] = [_init_dense_layer(pb, cfg)
                        for _ in range(cfg.n_layers)]
-    elif cfg.family == "ssm":
+    elif fam == "ssm":
         p["layers"] = [_init_mamba_layer(pb, cfg)
                        for _ in range(cfg.n_layers)]
-    else:                                                   # hybrid
-        ng = n_groups(cfg)
+    elif fam == "hybrid":
         p["groups"] = [[_init_mamba_layer(pb, cfg)
-                        for _ in range(cfg.attn_every)] for _ in range(ng)]
+                        for _ in range(cfg.attn_every)]
+                       for _ in range(n_groups(cfg))]
         p["shared"] = _init_dense_layer(pb, cfg)
+    elif fam == "vlm":
+        ng = n_groups(cfg)
+        p["groups"] = [[_init_dense_layer(pb, cfg)
+                        for _ in range(cfg.cross_attn_every)]
+                       for _ in range(ng)]
+        p["cross"] = [_init_cross_layer(pb, cfg) for _ in range(ng)]
+    else:                                                   # encdec
+        p["enc_pos"] = pb.param((cfg.n_frames, cfg.d_model), scale=0.02)
+        p["enc_layers"] = [_init_dense_layer(pb, cfg)
+                           for _ in range(cfg.n_enc_layers)]
+        p["enc_norm"] = L.init_norm(pb, cfg)
+        p["dec_layers"] = [_init_dec_layer(pb, cfg)
+                           for _ in range(cfg.n_layers)]
     return p
 
 
 def n_groups(cfg: ModelConfig) -> int:
-    """A hybrid model's number of Mamba groups (= shared-block uses)."""
-    ng = cfg.n_layers // cfg.attn_every
-    if ng * cfg.attn_every != cfg.n_layers:
-        raise ValueError(f"attn_every {cfg.attn_every} does not divide "
-                         f"n_layers {cfg.n_layers}")
+    """A hybrid model's number of groups of ``attn_every`` Mamba layers
+    (= shared-block uses), or a VLM's of ``cross_attn_every`` self layers
+    (= cross layers)."""
+    every = cfg.attn_every if cfg.family == "hybrid" else cfg.cross_attn_every
+    ng = cfg.n_layers // every
+    if ng * every != cfg.n_layers:
+        raise ValueError(f"group size {every} does not divide n_layers "
+                         f"{cfg.n_layers}")
     return ng
 
 
@@ -145,8 +186,61 @@ def _dense_block(p, x: Tensor, cfg: ModelConfig, q_pos: Tensor):
     return x + y, aux, (k, v)
 
 
+def _cross_attention(p, h: Tensor, mem: Tensor, cfg: ModelConfig,
+                     q_pos: Tensor, mem_pos: Tensor) -> Tensor:
+    """Attention of ``h`` over a memory: no RoPE, no causal mask, and
+    tanh-gated when ``p`` has a ``gate`` (the VLM's)."""
+    return L.attention(p, h, cfg, q_pos=q_pos, ctx=mem, kv_pos=mem_pos,
+                       causal=False, rope=False, block_kv=cfg.attn_block_kv)
+
+
+def _cross_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
+                 mem_pos: Tensor) -> Tensor:
+    """A VLM's cross layer: gated cross-attention, then its MLP
+    (``model.py:194-203``)."""
+    h = L.apply_norm(p["attn_norm"], x, cfg)
+    x = x + _cross_attention(p["attn"], h, mem, cfg, q_pos, mem_pos)
+    if "mlp" in p:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["mlp_norm"], x, cfg),
+                            cfg)
+    return x
+
+
+def _dec_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
+               mem_pos: Tensor):
+    """A Whisper decoder layer (``model.py:310-334``): causal
+    self-attention without RoPE, cross-attention over the encoder's
+    output, the MLP.  Returns the output and the self-attention's (K, V).
+
+    Prefill and forward both attend through ``attention_core``, which
+    honours a sliding window.  The reference's prefill form
+    (``collect_kv``) calls ``blocked_attention`` with no window instead, so
+    there a model given a window prefills other K/V than its forward
+    computes (ROADMAP.md, faults of the reference); without a window,
+    whisper's own setting, the two are the same computation."""
+    h = L.apply_norm(p["attn_norm"], x, cfg)
+    q, k, v = L._qkv(p["attn"], h, h, cfg, q_pos, q_pos, False)
+    o = L.attention_core(q, k, v, q_pos, q_pos, cfg, causal=True,
+                         block_kv=cfg.attn_block_kv)
+    x = x + L.out_proj(o, p["attn"]["wo"])
+    h = L.apply_norm(p["cross_norm"], x, cfg)
+    x = x + _cross_attention(p["cross"], h, mem, cfg, q_pos, mem_pos)
+    h = L.apply_norm(p["mlp_norm"], x, cfg)
+    return x + L.apply_mlp(p["mlp"], h, cfg), (k, v)
+
+
+def _positions(b: int, s: int, device) -> Tensor:
+    """(B, S) int32 positions 0 .. S-1."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
 def embed_tokens(p, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return F.embedding(tokens, p["embed"]).to(cfg.torch_dtype)
+    """Token embeddings in the model dtype, plus the learned position
+    table's first S rows where the config has one."""
+    x = F.embedding(tokens, p["embed"]).to(cfg.torch_dtype)
+    if cfg.pos_emb == "learned":
+        x = x + p["pos"][:tokens.shape[1]][None].to(x.dtype)
+    return x
 
 
 def unembed(p, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -161,35 +255,65 @@ def unembed(p, cfg: ModelConfig, x: Tensor) -> Tensor:
     return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
+def _stack_kv(kvs) -> tuple:
+    """Per-layer (K, V) pairs -> (K, V), each stacked on a leading axis."""
+    return tuple(torch.stack(t) for t in zip(*kvs))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
-            collect_kv: bool = False):
+            memory: Optional[Tensor] = None, collect_kv: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux, kv).
 
+    ``memory``: an enc-dec model's frame embeddings (B, n_frames, D), a
+    VLM's patch embeddings (B, n_img_tokens, D) — the stub front ends'
+    output — cast to the model dtype; unused by the other families.
     ``aux`` is the MoE layers' summed aux loss (0.0 without MoE layers).
-    ``kv`` (the prefill cache) when ``collect_kv``, else None: a dense or
-    MoE model's ``{"self": (K, V)}``, each (L,B,S,Kh,Dh); an SSM model's
+    ``kv`` (the prefill cache) when ``collect_kv``, else None: a dense,
+    MoE or VLM model's ``{"self": (K, V)}``, each (L,B,S,Kh,Dh), the
+    layers in order (a VLM's group-major); an enc-dec model's adds
+    ``"memory"``, the encoder's output (B, F, D); an SSM model's
     ``{"states": {"ssm": (L,B,h,p,n), "conv": (L,B,K-1,ch)}}``, the Mamba
     layers in order (a hybrid model's group-major, group x attn_every +
     layer); a hybrid model adds ``"shared": (K, V)``, each (G,B,S,Kh,Dh),
     one per application of the shared block.
     """
-    check_ported(cfg)
+    fam = cfg.family
+    if fam in ("vlm", "encdec") and memory is None:
+        raise ValueError(f"family {fam!r} requires a memory")
     x = embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
-    q_pos = torch.arange(s, dtype=torch.int32,
-                         device=tokens.device).expand(b, s)
+    q_pos = _positions(b, s, tokens.device)
     states, kvs, aux = [], [], 0.0
-    if cfg.family in ("dense", "moe"):                  # model.py:243-251
-        for pl in params["layers"]:
-            x, a, kv = _dense_block(pl, x, cfg, q_pos)
-            aux = aux + a
+    kv: Optional[Dict[str, Any]] = None
+    if fam in ("dense", "moe", "vlm"):                  # model.py:243-303
+        if fam == "vlm":
+            mem = memory.to(x.dtype)
+            i_pos = _positions(b, mem.shape[1], mem.device)
+            groups = list(zip(params["cross"], params["groups"]))
+        else:
+            groups = [(None, params["layers"])]
+        for cp, gp in groups:
+            if cp is not None:
+                x = _cross_block(cp, x, mem, cfg, q_pos, i_pos)
+            for pl in gp:
+                x, a, lkv = _dense_block(pl, x, cfg, q_pos)
+                aux = aux + a
+                if collect_kv:
+                    kvs.append(lkv)
+        if collect_kv:
+            kv = {"self": _stack_kv(kvs)}
+        return unembed(params, cfg, x), aux, kv
+    if fam == "encdec":                                 # model.py:305-340
+        mem = encode(params, cfg, memory)
+        m_pos = _positions(b, mem.shape[1], mem.device)
+        for pl in params["dec_layers"]:
+            x, lkv = _dec_block(pl, x, mem, cfg, q_pos, m_pos)
             if collect_kv:
-                kvs.append(kv)
-        logits = unembed(params, cfg, x)
-        kv = ({"self": tuple(torch.stack(t) for t in zip(*kvs))}
-              if collect_kv else None)
-        return logits, aux, kv
-    if cfg.family == "ssm":
+                kvs.append(lkv)
+        if collect_kv:
+            kv = {"self": _stack_kv(kvs), "memory": mem}
+        return unembed(params, cfg, x), aux, kv
+    if fam == "ssm":
         groups, shared = [params["layers"]], None
     else:                                                   # hybrid
         groups, shared = params["groups"], params["shared"]
@@ -198,15 +322,30 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             x, st = _mamba_block(pl, x, cfg, collect_state=collect_kv)
             states.append(st)
         if shared is not None:
-            x, a, kv = _dense_block(shared, x, cfg, q_pos)
+            x, a, lkv = _dense_block(shared, x, cfg, q_pos)
             aux = aux + a
             if collect_kv:
-                kvs.append(kv)
+                kvs.append(lkv)
     logits = unembed(params, cfg, x)
-    kv = None
     if collect_kv:
         kv = {"states": {k: torch.stack([st[k] for st in states])
                          for k in ("ssm", "conv")}}
         if shared is not None:
-            kv["shared"] = tuple(torch.stack(t) for t in zip(*kvs))
+            kv["shared"] = _stack_kv(kvs)
     return logits, aux, kv
+
+
+def encode(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
+    """Whisper's encoder over stubbed frame embeddings (B, n_frames, D):
+    the learned ``enc_pos`` added, then bidirectional attention (no RoPE)
+    and the MLP in each layer, then ``enc_norm`` (``model.py:347-367``)."""
+    dt = cfg.torch_dtype
+    x = frames.to(dt) + params["enc_pos"][None].to(dt)
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    for pl in params["enc_layers"]:
+        h = L.apply_norm(pl["attn_norm"], x, cfg)
+        x = x + L.attention(pl["attn"], h, cfg, q_pos=pos, causal=False,
+                            rope=False, block_kv=cfg.attn_block_kv)
+        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["mlp_norm"], x, cfg),
+                            cfg)
+    return L.apply_norm(params["enc_norm"], x, cfg)

@@ -1,4 +1,4 @@
-"""Decode-state (KV / SSM) caches — the families the port runs so far.
+"""Decode-state (KV / SSM) caches for all six families.
 
 The counterpart of ``repro/serving/cache.py``.  A dense or MoE cache
 holds every layer's K/V ring, ``k``/``v`` (L, B, ring, Kh, Dh).  An SSM
@@ -6,14 +6,16 @@ cache is O(1) in the sequence length: per layer a (B, H, P, N) float32
 state and the last K-1 raw conv inputs, stacked over layers as in the
 reference, plus the scalar position.  A hybrid cache adds the shared
 attention block's K/V, one ring per application, (G, B, ring, Kh, Dh).
+A VLM or enc-dec cache adds ``cross``: the K/V of the memory, computed
+once at prefill, one per cross layer — (G, B, n_img_tokens, Kh, Dh) or
+(L, B, n_frames, Kh, Dh).
 
 KV caches are RING buffers of length ``ring``: the cache length, or the
 decode/sliding window when that is shorter.  Position p lives in slot
 ``p % ring``, and ``kv_pos`` (ring,) records which absolute position
 occupies each slot (-1 = empty); it drives the attention mask, so window
 and causal semantics survive wrap-around.  Batched decoding is
-position-aligned (one scalar ``pos`` per cache).  The VLM and enc-dec
-caches wait for their families (ROADMAP.md, Queue 1).
+position-aligned (one scalar ``pos`` per cache).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.model import check_ported, n_groups
+from repro_torch.models.model import n_groups
 
 Cache = Dict[str, Any]
 Tensor = torch.Tensor
@@ -59,19 +61,29 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     ``cache_len`` bounds the sequence; the SSM states do not depend on it,
     and a ring holds ``ring_len(cfg, cache_len)`` slots.
     """
-    check_ported(cfg)
     device = resolve_device(device)
     pos = torch.zeros((), dtype=torch.int32, device=device)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam == "ssm":
         return {"pos": pos, **_ssm_states(cfg, cfg.n_layers, batch, device)}
     ring = ring_len(cfg, cache_len)
     base = {"pos": pos,
             "kv_pos": torch.full((ring,), -1, dtype=torch.int32,
                                  device=device)}
-    if cfg.family in ("dense", "moe"):                   # cache.py:56-57
+    if fam in ("dense", "moe"):                          # cache.py:56-57
         return {**base, **_kv(cfg, cfg.n_layers, batch, ring, device)}
-    return {**base, **_ssm_states(cfg, cfg.n_layers, batch, device),
-            "shared": _kv(cfg, n_groups(cfg), batch, ring, device)}
+    if fam == "hybrid":
+        return {**base, **_ssm_states(cfg, cfg.n_layers, batch, device),
+                "shared": _kv(cfg, n_groups(cfg), batch, ring, device)}
+    if fam == "vlm":                                     # cache.py:65-73
+        return {**base, **_kv(cfg, cfg.n_layers, batch, ring, device),
+                "cross": _kv(cfg, n_groups(cfg), batch, cfg.n_img_tokens,
+                             device)}
+    if fam == "encdec":
+        return {**base, **_kv(cfg, cfg.n_layers, batch, ring, device),
+                "cross": _kv(cfg, cfg.n_layers, batch, cfg.n_frames,
+                             device)}
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 
 The counterpart of ``repro/serving/lm_driver.py``.  Decode batches must be
 *position-aligned* (one scalar ``pos`` per cache — see
-``serving/engine.py``), so the batchable unit is ``(prompt_len, n_new)``:
-requests with the same signature stack into one ``generate`` call (prefill + decode steps) and stream back per-request
-token tensors.  It reports the same metrics as the reference driver.
+``serving/engine.py``), so the batchable unit is ``(prompt_len, n_new,
+memory signature)``: requests with the same signature stack into one
+``generate`` call (prefill + decode steps), their memories (an enc-dec
+model's frames, a VLM's patches) stacked beside the prompts, and stream
+back per-request token tensors.  It reports the same metrics as the
+reference driver.
 
     driver = GenerateDriver(params, cfg, cache_len=64)
     fut = driver.submit(prompt_tokens, n_new=16)      # (S,) int
@@ -26,10 +29,11 @@ from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
 
 
 class _GenJob:
-    __slots__ = ("prompt", "t_submit")
+    __slots__ = ("prompt", "memory", "t_submit")
 
-    def __init__(self, prompt):
+    def __init__(self, prompt, memory):
         self.prompt = prompt
+        self.memory = memory
         self.t_submit = time.monotonic()
 
 
@@ -58,19 +62,27 @@ class GenerateDriver:
                                      autostart=autostart)
 
     # -- admission -----------------------------------------------------------
-    def group_key(self, prompt, n_new: int) -> str:
-        return f"len={prompt.shape[0]};new={n_new}"
+    def group_key(self, prompt, n_new: int, memory=None) -> str:
+        mem = ("none" if memory is None
+               else "x".join(str(s) for s in memory.shape))
+        return f"len={prompt.shape[0]};new={n_new};mem={mem}"
 
-    def submit(self, prompt, n_new: int) -> Future:
-        """Enqueue one request. ``prompt`` is (S,) int; result (n_new,)."""
+    def submit(self, prompt, n_new: int, memory=None) -> Future:
+        """Enqueue one request. ``prompt`` is (S,) int; result (n_new,).
+        ``memory``, required by the enc-dec and VLM families, is the
+        request's (n_frames or n_img_tokens, D) embeddings."""
         prompt = torch.as_tensor(prompt)
         if prompt.dim() != 1:
             raise ValueError(
                 f"prompt must be a 1-D token array, got {tuple(prompt.shape)}")
-        key = (self.group_key(prompt, n_new), n_new)
+        if self.cfg.family in ("vlm", "encdec") and memory is None:
+            raise ValueError(f"family {self.cfg.family!r} requires a memory")
+        if memory is not None:
+            memory = torch.as_tensor(memory)
+        key = (self.group_key(prompt, n_new, memory), n_new)
         m = self.metrics_registry.group(key[0])
         try:
-            fut = self._sched.submit(key, _GenJob(prompt))
+            fut = self._sched.submit(key, _GenJob(prompt, memory))
         except QueueFullError:
             m.bump(rejected=1)
             raise
@@ -124,8 +136,10 @@ class GenerateDriver:
         try:
             prompts = torch.stack([j.prompt for j in jobs]).to(
                 device=self.device, dtype=torch.int32)
+            memory = (torch.stack([j.memory for j in jobs]).to(self.device)
+                      if jobs[0].memory is not None else None)
             toks, _ = E.generate(self.params, self.cfg, prompts, n_new,
-                                 cache_len, greedy=self.greedy,
+                                 cache_len, memory=memory, greedy=self.greedy,
                                  generator=self.generator)
             if toks.device.type == "cuda":
                 torch.cuda.synchronize(toks.device)

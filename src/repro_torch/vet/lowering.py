@@ -89,8 +89,9 @@ program (the engine's emission, which the rules above audit):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -193,7 +194,9 @@ class CallAudit:
     call's top-level ops and regions, then its device launches, in order.
     ``device_ms`` (card only) splits the call's device time into
     ``kernel`` and ``outside``; ``kernel_share`` is the first's share.
-    ``out`` is the call's result.
+    ``out`` is the call's result.  ``attempts`` is how many times the
+    profiled call ran: 1, plus one for each card trace that was retaken
+    (``trace_device``); ``audit_call``'s warm-up is one call more.
     """
 
     counts: Dict[str, int]
@@ -201,6 +204,7 @@ class CallAudit:
     sequence: Tuple[str, ...]
     device_ms: Optional[Dict[str, float]] = None
     out: object = None
+    attempts: int = 1
 
     @property
     def kernel_share(self) -> Optional[float]:
@@ -264,16 +268,19 @@ def _summarize(events, on_card: bool) -> CallAudit:
 
 
 def trace_device(fn: Callable[[], object], device: torch.device):
-    """``(events, result)`` of one profiled call of ``fn()`` on the card.
+    """``(events, result, attempts)`` of one profiled call of ``fn()`` on
+    the card.
 
     The trace opens with ``MARKERS`` ``MARKER_KERNEL`` spins on
     ``device``'s stream, the device idle before and between them; since
     lost events are those at a trace's head, a trace that holds a marker
     holds every device op of the call.  A trace without one is taken
-    again; after ``TRACE_ATTEMPTS`` such traces this raises.  The markers
-    are left for the caller to skip (``is_marker``)."""
+    again, so ``fn`` runs ``attempts`` times (1 + the retakes) and a
+    caller that counts its launches counts them all; after
+    ``TRACE_ATTEMPTS`` such traces this raises.  The markers are left for
+    the caller to skip (``is_marker``)."""
     seen = []
-    for _ in range(TRACE_ATTEMPTS):
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         TRACE_STATS["traces"] += 1
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CPU,
@@ -289,7 +296,7 @@ def trace_device(fn: Callable[[], object], device: torch.device):
                   and not e.is_user_annotation]
         markers = sum(map(is_marker, on_dev))
         if markers:
-            return events, out
+            return events, out, attempt
         TRACE_STATS["retaken"] += 1
         seen.append(len(on_dev))
     raise RuntimeError(
@@ -306,20 +313,23 @@ def profile_call(fn: Callable[[torch.Tensor], object],
                  x: torch.Tensor) -> CallAudit:
     """Profile one call of ``fn(x)`` (no warm-up): outside-region counts."""
     on_card = x.device.type == "cuda"
+    attempts = 1
     if on_card:
-        events, out = trace_device(lambda: fn(x), x.device)
+        events, out, attempts = trace_device(lambda: fn(x), x.device)
     else:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = fn(x)
         events = prof.events()
     audit = _summarize(events, on_card)
     audit.out = out
+    audit.attempts = attempts
     return audit
 
 
 def audit_call(fn: Callable[[torch.Tensor], object],
                x: torch.Tensor) -> CallAudit:
-    """Warm ``fn`` up on ``x`` once, then profile a second call."""
+    """Warm ``fn`` up on ``x`` once, then profile a second call: ``fn``
+    runs ``1 + attempts`` times in all."""
     fn(x)
     return profile_call(fn, x)
 
@@ -588,6 +598,24 @@ def planted_outside_launch(spec: StencilSpec, device: Device = None
                              taps.star)
         return y
     return fn
+
+
+@contextlib.contextmanager
+def planted_lost_head() -> Iterator[None]:
+    """Within this block the next card trace that ``trace_device`` takes
+    shows no marker, as when the profiler loses the head of a trace, so
+    that trace is retaken; the later traces are read as they are."""
+    global is_marker
+    first = TRACE_STATS["traces"] + 1
+    kept = is_marker
+
+    def hidden(event) -> bool:
+        return kept(event) and TRACE_STATS["traces"] != first
+    is_marker = hidden
+    try:
+        yield
+    finally:
+        is_marker = kept
 
 
 def v1_path(spec: StencilSpec) -> Callable[[torch.Tensor], torch.Tensor]:

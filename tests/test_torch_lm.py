@@ -96,20 +96,20 @@ def test_config_converter_renames_and_rejects():
 
 
 def test_registry_lists_only_ported_families():
-    """The enc-dec and VLM archs are not registered, and their families
-    (and learned position embeddings) raise in init_params and init_cache;
-    the dense and MoE archs are registered."""
-    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
-    assert {"qwen3-1.7b", "granite-moe-3b-a800m"} <= set(ARCHS)
-    base = get_config(ARCH, smoke=True).scaled(n_heads=4, n_kv_heads=4)
-    for cfg in (base.scaled(family="encdec"), base.scaled(family="vlm"),
-                base.scaled(family="dense", pos_emb="learned")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_cache(cfg, 1, 8, device="cpu")
+    """The registry lists the reference's ten archs, all six families
+    ported, and raises ``KeyError`` for an arch the reference lacks; a
+    dense model with learned positions builds its ``pos`` table."""
+    from repro.configs.registry import ARCHS as REF_ARCHS
+    assert ARCHS == REF_ARCHS
+    assert {get_config(a).family for a in ARCHS} == {
+        "dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("retnet-1b")
+    cfg = get_config("qwen3-1.7b", smoke=True).scaled(pos_emb="learned")
+    p = M.init_params(cfg, 0, device="cpu")
+    assert tuple(p["pos"].shape) == (cfg.max_seq, cfg.d_model)
+    assert set(init_cache(cfg, 1, 8, device="cpu")) == {"pos", "kv_pos",
+                                                        "k", "v"}
 
 
 def test_params_carried_across_exactly(pair):

@@ -459,6 +459,89 @@ def test_card_audit_skips_the_trace_markers():
                    for n in a.sequence)
 
 
+class _StubTraces:
+    """Stands in for ``torch.profiler.profile`` on the card: every trace
+    holds ``per_call`` region kernels behind the two marker spins, but the
+    traces numbered in ``lose`` have lost their head, markers included."""
+
+    def __init__(self, per_call: int, lose=()):
+        self.per_call, self.lose, self.taken = per_call, set(lose), 0
+
+    def __call__(self, activities):
+        return self
+
+    def __enter__(self):
+        self.taken += 1
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        def dev(name, t):
+            return SimpleNamespace(
+                name=name, device_type=DeviceType.CUDA,
+                is_user_annotation=False,
+                time_range=SimpleNamespace(start=t, end=t + 5))
+        kernels = [dev("void spider::sptc_mma_kernel<float, 0, false, 2>",
+                       10 * (i + 2)) for i in range(self.per_call)]
+        if self.taken in self.lose:
+            return kernels[1:]                    # the head of the trace
+        return [dev("spin_kernel", 0), dev("spin_kernel", 10)] + kernels
+
+
+def _stub_card(monkeypatch, traces: _StubTraces):
+    """``lowering``'s card traces on the CPU: the profiler and the CUDA
+    calls around it stubbed; returns an input whose device is "cuda"."""
+    import contextlib
+    monkeypatch.setattr(lowering, "profile", traces)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    return SimpleNamespace(device=SimpleNamespace(type="cuda"))
+
+
+@pytest.mark.parametrize("lose,planted,attempts", [
+    ((), False, 1), ((1,), False, 2), ((1, 2), False, 3), ((), True, 2),
+    ((2,), True, 3)])
+def test_retaken_trace_counts_every_launch(monkeypatch, lose, planted,
+                                           attempts):
+    """A card trace that lost its markers is taken again, which runs the
+    call again: an audited call (a warm-up, then the traced runs) makes
+    ``(1 + attempts) * per_call`` launches, and the trace kept counts
+    ``per_call`` kernels.  ``planted_lost_head`` hides the markers of the
+    first trace, so it is retaken as a lost one is."""
+    import contextlib
+    per_call, launches = 3, []
+    traces = _StubTraces(per_call, lose)
+    x = _stub_card(monkeypatch, traces)
+    before = dict(lowering.TRACE_STATS)
+
+    def call(_x):                  # a wrapper's launch counter, per call
+        launches.append(per_call)
+        return len(launches)
+    with lowering.planted_lost_head() if planted else \
+            contextlib.nullcontext():
+        a = lowering.audit_call(call, x)
+    assert a.attempts == attempts == traces.taken
+    assert sum(launches) == (1 + a.attempts) * per_call
+    assert a.out == 1 + a.attempts                # the kept trace's call
+    assert a.counts["kernels"] == per_call and a.counts["device_ops"] == 0
+    assert lowering.TRACE_STATS["traces"] - before["traces"] == attempts
+    assert lowering.TRACE_STATS["retaken"] - before["retaken"] == attempts - 1
+    assert lowering.is_marker(SimpleNamespace(name="spin_kernel"))
+
+
+def test_trace_that_keeps_losing_its_head_raises(monkeypatch):
+    traces = _StubTraces(2, lose=range(1, lowering.TRACE_ATTEMPTS + 1))
+    x = _stub_card(monkeypatch, traces)
+    calls = []
+    with pytest.raises(RuntimeError, match="lost the head"):
+        lowering.profile_call(lambda _x: calls.append(1), x)
+    assert len(calls) == traces.taken == lowering.TRACE_ATTEMPTS
+
+
 def _card_counts(**kw):
     counts = dict.fromkeys(lowering.COUNT_KEYS, 0)
     counts.update(kernels=0, device_ops=0)

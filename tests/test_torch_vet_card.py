@@ -131,3 +131,23 @@ def test_audit_traces_keep_every_device_op(cuda_device):
         a = lowering.profile_call(eng, x)
         assert a.counts == want, (a.counts, want)
         assert not any(lowering.MARKER_KERNEL in s for s in a.sequence)
+
+
+@pytest.mark.cuda
+def test_planted_retake_counts_every_launch(cuda_device):
+    # the first trace's markers hidden: the trace is retaken, the call runs
+    # once more, and the wrapper's counter sees every launch
+    from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    eng = StencilEngine(make_stencil("box", 2, 1, seed=7), "cuda_sptc",
+                        device=cuda_device)
+    x = lowering.probe_input((18, 18), cuda_device)
+    per_call = len(eng.plan_ir.decompose.ops)
+    want = lowering.audit_call(eng, x)
+    n0 = sptc_ops.sptc_spmm_fused.launches
+    with lowering.planted_lost_head():
+        got = lowering.audit_call(eng, x)
+    launches = sptc_ops.sptc_spmm_fused.launches - n0
+    assert got.attempts >= 2, got.attempts
+    assert launches == (1 + got.attempts) * per_call, (launches, got.attempts)
+    assert got.counts == want.counts, (got.counts, want.counts)
+    assert torch.equal(got.out, want.out)
