@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives twelve
-paths, each with the launch counters set to 0 just before it and read just
-after:
+each kernel against its plain torch version on the card, and drives
+thirteen paths, each with the launch counters set to 0 just before it and
+read just after:
 
 * the stencil engine (``StencilEngine`` with the ``cuda_sptc``,
   ``cuda_gemm`` and ``cuda_direct`` backends) over the whole paper suite at
@@ -61,14 +61,26 @@ after:
   two groups, the gates set non-zero) holds prefill-then-decode against
   forward through a full and a wrapped ring, and a planted fault (another
   memory) must move its logits; the profile splits out the
-  cross-attention's and the encoder's device time.
+  cross-attention's and the encoder's device time;
+* training ``qwen3-1.7b`` at full size (1,720,574,976 parameters, bf16,
+  remat ``full``) through ``repro_torch.launch.train.main``: 8 steps of 8 x
+  512 tokens in 2 microbatches, the losses finite and falling, step time,
+  tokens/s, peak memory and a profiled step; then kill-and-resume of its
+  bf16 smoke config through the launcher's checkpoints, bit for bit under
+  deterministic algorithms, and every arch's smoke config trained 2 steps
+  on the card against the CPU (Mamba2 and Zamba2 with ``use_kernels`` on
+  must refuse to train: the conv kernel has no backward).
 
 Phase vet also plants one retake: the first trace of one full-size audit
 loses its markers, and the audit's launches must count the retaken call.
+Every profile is the launch audit's trace (``vet.lowering.trace_device``:
+spins at its head, a trace that lost them retaken), and holds the kernels
+it records to the wrappers' launch counters.
 
 The dense, MoE, enc-dec and VLM families reach no Pallas kernel in the
 reference, so their five phases launch no kernel of the port, and each
-checks that the conv kernel was launched no time.
+checks that the conv kernel was launched no time; nor does training (the
+reference trains on the plain conv).
 
 It times every kernel with CUDA events at the paths' shapes and prints the
 card, a ``kernels`` JSON line and a final contract line.  Every phase
@@ -80,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -272,56 +285,79 @@ def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
             "launch_ms": _time_ms(kern, reps, hold=False)}
 
 
-def _profile(fn, label: str, smi: str, top: int = 8,
-             regions: tuple = ()) -> dict:
+def _profile(fn, label: str, smi: str, top: int = 8, regions: tuple = (),
+             counters: tuple = ()) -> dict:
     """Device time of one call of ``fn`` by kernel name (``torch.profiler``),
     and the share of the call's wall time the device spent idle.
 
-    The kernel wrappers' regions (``KERNEL_REGIONS``) and ``regions`` also
-    appear as device-side annotations spanning their kernels; those rows
-    are not kernels and are left out of the busy time.  ``by_region`` holds
-    the device time of the kernels launched inside each of ``regions``.
-    A measurement only: where the profiler records no device time here,
-    that is printed and the run goes on.
+    The trace is the launch audit's (``vet.lowering.trace_device``): it
+    opens with spin kernels, left out here, and a trace that lost them (and
+    with them the head of the call) is taken again, so ``fn`` runs once
+    more per retake and must be safe to repeat.  ``wall_ms`` is the host's
+    time of the kept call, synchronised, without the spins.  The kernel
+    wrappers' regions (``KERNEL_REGIONS``) and ``regions`` also appear as
+    device-side annotations spanning their kernels; those rows are not
+    kernels and are left out of the busy time.  ``by_region`` holds the
+    device time of the kernels launched inside each of ``regions``.
+    ``counters`` are kernel wrappers (``KERNEL_REGIONS``' keys): the trace
+    must hold each one's kernel exactly as many times as the wrapper
+    counted launches in the kept call.  Raises when the trace holds no
+    device time or another count of a counted kernel.
     """
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.common import KERNEL_REGIONS
+    from repro_torch.vet.lowering import is_marker, trace_device
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-    except RuntimeError as exc:            # the profiler, not the work
-        print(f"profile {label}: torch.profiler failed ({exc})")
-        return {"wall_ms": None, "device_ms": None, "rows": [],
-                "by_region": {}}
+    runs = []
+
+    def timed():
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3,
+                     [c.launches - b for c, b in zip(counters, before)]))
+    events, _, attempts = trace_device(
+        timed, torch.device("cuda", torch.cuda.current_device()))
+    wall_ms, launched = runs[-1]
     marks = set(KERNEL_REGIONS) | set(regions)
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in events                # the kernels, not the ops
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total
-            and e.key not in marks]
-    rows.sort(reverse=True)
-    by_region = {e.key: e.device_time_total / 1e3 for e in events
+    by_name: dict = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and not is_marker(e) and e.name not in marks):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+    by_region = {e.key: e.device_time_total / 1e3
+                 for e in events.key_averages()
                  if e.device_type == DeviceType.CPU and e.key in regions}
+    rows = sorted(((ms, n, key) for key, (ms, n) in by_name.items()),
+                  reverse=True)
     busy_ms = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    if not rows:
-        print(f"profile {label}: the profiler recorded no device time")
-        return {"wall_ms": wall_ms, "device_ms": None, "rows": [],
-                "by_region": {}}
+    if not rows or busy_ms <= 0:
+        raise AssertionError(f"profile {label}: the trace holds no device "
+                             f"time ({attempts} attempts)")
+    for c, want in zip(counters, launched):
+        kernel = KERNEL_REGIONS[c.__name__]
+        got = sum(n for _, n, key in rows if kernel in key)
+        if got != want:
+            raise AssertionError(f"profile {label}: the trace holds {got} "
+                                 f"{kernel} launches, {c.__name__} counted "
+                                 f"{want}")
     print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
           f"{busy_ms:.2f} ms in {launches} kernels, idle share "
-          f"{100 * max(0.0, 1 - busy_ms / wall_ms):.0f}% | card {smi}")
+          f"{100 * max(0.0, 1 - busy_ms / wall_ms):.0f}%, trace attempts "
+          f"{attempts}"
+          + "".join(f", {c.__name__} {n} = counted" for c, n in
+                    zip(counters, launched)) + f" | card {smi}")
     for ms, n, key in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<5d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "kernels": launches,
+            "attempts": attempts,
+            "counted": {c.__name__: n for c, n in zip(counters, launched)},
             "top": [{"ms": ms, "count": n, "name": key}
                     for ms, n, key in rows[:top]],
             "rows": rows, "by_region": by_region}
@@ -706,21 +742,28 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
           f"{prefill_ms:.2f} ms ({MAX_BATCH * PROMPT_LEN / prefill_ms * 1e3:.0f}"
           f" tok/s); decode step at batch {MAX_BATCH}: {decode_ms:.2f} ms | "
           f"card {smi}")
+    # prefill and decode are safe to repeat (decode_step leaves the cache
+    # it is handed as it was); the trace holds the conv kernel once per
+    # Mamba layer of the prefill and never in decode, as counted
     with _model_regions() as regions:
         prof = _profile(lambda: E.prefill(params, cfg, batch0, cache_len,
                                           memory=mem0),
                         f"{arch} prefill {MAX_BATCH} x {PROMPT_LEN}", smi,
-                        regions=regions)
+                        regions=regions, counters=(conv_ops.conv1d_causal,))
         dec = _profile(lambda: E.decode_step(params, cfg, cc, tok),
                        f"{arch} decode step at batch {MAX_BATCH}", smi,
-                       regions=regions)
+                       regions=regions, counters=(conv_ops.conv1d_causal,))
+    if prof["counted"]["conv1d_causal"] != n_mamba:
+        raise AssertionError(f"the profiled prefill launched the conv kernel "
+                             f"{prof['counted']['conv1d_causal']} times, "
+                             f"want {n_mamba}")
     # the conv kernel's device time inside that prefill, by kernel name
     conv = [(ms, n) for ms, n, key in prof.pop("rows")
             if "conv1d_causal_kernel" in key]
     dec.pop("rows")
     if not mamba:
         out["conv_in_prefill"] = None       # no Mamba layer, no conv kernel
-    elif conv and prof["device_ms"]:
+    else:
         c_ms, c_n = sum(r[0] for r in conv), sum(r[1] for r in conv)
         out["conv_in_prefill"] = {
             "ms": c_ms, "launches": c_n,
@@ -730,10 +773,6 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
               f"{c_ms:.3f} ms in {c_n} launches, "
               f"{100 * c_ms / prof['device_ms']:.2f}% of device time, "
               f"{100 * c_ms / prof['wall_ms']:.2f}% of the wall | card {smi}")
-    else:
-        out["conv_in_prefill"] = None
-        print(f"{tag}: conv share of prefill not measured (the profile "
-              f"holds no conv1d_causal_kernel row)")
     if family != "ssm":
         # prefill writes no ring slot: its K/V is packed once; the encoder
         # runs in prefill only
@@ -746,7 +785,7 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
                                ("decode step", dec, regs_dec)):
             for reg in regs:
                 ms = pr["by_region"].get(reg)
-                if ms is None or not pr["device_ms"]:
+                if ms is None:
                     print(f"{tag}: {reg} share of the {name} not measured "
                           f"(no device time under its region)")
                     continue
@@ -873,6 +912,324 @@ def _phase_variants(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase lm-variants: {out['seconds']:.1f} s")
+    return out
+
+
+#: phase train: the launcher's flags, Qwen3-1.7B at full size (bf16, remat
+#: "full", its config's defaults), 8 steps of 8 x 512 tokens in 2
+#: microbatches
+TRAIN_ARGV = ("--arch", DENSE_ARCH, "--steps", "8", "--batch", "8", "--seq",
+              "512", "--microbatches", "2", "--lr", "3e-3", "--log-every",
+              "1")
+#: the resume check: Qwen3's smoke config cast to bf16, 6 steps against 4,
+#: a restart, and 2 more, under deterministic algorithms
+RESUME_ARGV = ("--arch", DENSE_ARCH, "--smoke", "--dtype", "bfloat16",
+               "--batch", "4", "--seq", "64", "--ckpt-every", "2",
+               "--log-every", "1")
+#: phase train-variants: each arch's smoke config (float32) trained 2 steps
+#: on the card and on the CPU from the same weights and batches, loss and
+#: grad norm relative to the CPU's.  The card sums in other orders (TF32
+#: off), and AdamW's first step can move a weight whose gradient is ~0 by a
+#: whole lr on one device and not the other; on an H100 the two land within
+#: 1.7e-7 (loss) and 1.1e-5 (grad norm, Zamba2's), so the limits leave two
+#: orders of magnitude of room and still fail a grad leaf gone missing
+TRAIN_VARIANT_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+
+
+@contextlib.contextmanager
+def _train_regions():
+    """Open profiler regions in a train step: the forward pass with its
+    loss (``lm_loss``), the attention cores, the unembed (forward), the
+    optimizer (``optimizer.apply``) and each dense layer body, named
+    ``recompute`` when it runs off the main thread — remat's recomputation
+    inside the backward pass, which autograd runs on its device thread —
+    and ``layer`` otherwise.  Yields the region names and a dict counting
+    the layer bodies by name."""
+    import threading
+
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import model
+    from repro_torch.training import optimizer
+    main = threading.main_thread()
+    calls = {"layer": 0, "recompute": 0}
+
+    def wrap(fn, name):
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+
+    def body(fn, _):
+        def inner(*args, **kwargs):
+            name = "layer" if threading.current_thread() is main \
+                else "recompute"
+            calls[name] += 1
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+    targets = ((layers, "attention_core", wrap, "attention"),
+               (model, "unembed", wrap, "unembed"),
+               (model, "lm_loss", wrap, "forward"),
+               (optimizer, "apply", wrap, "optimizer"),
+               (model, "_dense_block", body, "layer"))
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in targets]
+    for mod, attr, how, name in targets:
+        setattr(mod, attr, how(getattr(mod, attr), name))
+    try:
+        yield ("forward", "attention", "unembed", "optimizer", "layer",
+               "recompute"), calls
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def _phase_train(dev, smi: str) -> dict:
+    """Train Qwen3-1.7B at full size through ``launch.train.main``
+    (``TRAIN_ARGV``): the parameter count, finite losses, the last below the
+    first, no conv launch; the median step over steps 2-8, tokens/s, peak
+    memory; then one more step profiled, split into the forward pass, the
+    attention cores, the unembed, the optimizer and remat's recompute."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.launch import train as TL
+    from repro_torch.models.nn import count_params
+    from repro_torch.training import data
+    T = importlib.import_module("repro_torch.training.train_step")
+
+    t_phase = time.perf_counter()
+    steps: list = []
+    gc.collect()                  # the served models' reference cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    conv_ops.conv1d_causal.launches = 0
+    state = TL.main(list(TRAIN_ARGV),
+                    on_metrics=lambda s, m, sec: steps.append(
+                        (s, float(m["loss"]), float(m["grad_norm"]), sec)))
+    launches = conv_ops.conv1d_causal.launches
+    peak = torch.cuda.max_memory_allocated()
+    args = TL.parse_args(list(TRAIN_ARGV))
+    cfg, tc, dc = TL.configs(args)
+    n_params = count_params(state.params)
+    losses = [loss for _, loss, _, _ in steps]
+    if n_params != N_PARAMS[DENSE_ARCH]:
+        raise AssertionError(f"{n_params:,} parameters, want "
+                             f"{N_PARAMS[DENSE_ARCH]:,}")
+    if [s for s, *_ in steps] != list(range(args.steps)) or \
+            not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}")
+    if launches:
+        raise AssertionError(f"training launched the conv kernel {launches} "
+                             f"times")
+    step_ms = statistics.median(sec for _, _, _, sec in steps[1:]) * 1e3
+    tokens = args.batch * args.seq
+    out = {"params": n_params, "dtype": cfg.dtype,
+           "remat": cfg.remat_policy if cfg.remat else "none",
+           "batch": args.batch, "seq": args.seq,
+           "microbatches": args.microbatches, "losses": losses,
+           "grad_norms": [g for _, _, g, _ in steps],
+           "step_s": [sec for *_, sec in steps],
+           "median_step_ms_2_8": step_ms, "tokens_per_s": tokens / step_ms
+           * 1e3, "peak_memory_gb": peak / 1e9,
+           "held_before_gb": held / 1e9, "conv1d_launches": launches}
+    print(f"phase train {DENSE_ARCH}: {n_params:,} parameters ({cfg.dtype}, "
+          f"remat {out['remat']}) trained {args.steps} steps of "
+          f"{args.batch} x {args.seq} tokens in {args.microbatches} "
+          f"microbatches through launch.train.main: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; median step (steps 2-{args.steps}) "
+          f"{step_ms:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; peak "
+          f"memory {out['peak_memory_gb']:.2f} GB "
+          f"(torch.cuda.max_memory_allocated; {out['held_before_gb']:.2f} GB "
+          f"held before the phase); conv1d launches 0 | card {smi}")
+    # one more step under the profiler: a retake takes another step from
+    # the state the last one left, which is as good a step to profile
+    box = [state]
+    tok = data.device_batch(dc, args.steps, dev)
+
+    def one_step():
+        box[0], _ = T.train_step(cfg, tc, box[0], tok)
+    with _train_regions() as (regions, calls):
+        prof = _profile(one_step, f"{DENSE_ARCH} train step", smi,
+                        regions=regions, counters=(conv_ops.conv1d_causal,))
+    prof.pop("rows")
+    busy, reg = prof["device_ms"], prof["by_region"]
+    runs = 1 + prof["attempts"]                 # the warm-up and the trace
+    per_run = {k: v / runs for k, v in calls.items()}
+    told = per_run["recompute"] == per_run["layer"] == \
+        cfg.n_layers * args.microbatches
+    shares = {}
+    for name in regions:
+        if name == "recompute" and not told:
+            continue
+        ms = reg.get(name)
+        if ms is not None:
+            shares[name] = {"ms": ms, "share_of_device": ms / busy}
+    rest = busy - reg.get("forward", 0.0) - reg.get("optimizer", 0.0)
+    shares["backward_and_rest"] = {"ms": rest, "share_of_device": rest / busy}
+    out["profile"] = {**prof, "shares": shares, "layer_calls": per_run,
+                      "recompute_told_apart": told}
+    print(f"phase train profiled step: busy {busy:.1f} ms of wall "
+          f"{prof['wall_ms']:.1f} ms (idle share "
+          f"{100 * max(0.0, 1 - busy / prof['wall_ms']):.1f}%), "
+          f"{prof['kernels']} kernels; "
+          + ", ".join(f"{k} {v['ms']:.1f} ms "
+                      f"({100 * v['share_of_device']:.1f}%)"
+                      for k, v in shares.items())
+          + ("" if told else f"; recompute not told apart (layer bodies per "
+             f"step {per_run})") + f" | card {smi}")
+    del state, box
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase train: {out['seconds']:.1f} s")
+    return out
+
+
+def _phase_train_resume(dev, smi: str) -> dict:
+    """Kill and resume on the card, bit for bit: Qwen3's smoke config in
+    bf16 (bf16 checkpoint leaves) through ``launch.train.main``: 6 steps
+    straight, against 4 steps that checkpoint, a restart from the newest
+    checkpoint into a fresh state and 2 more steps, under deterministic
+    algorithms (this phase only)."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as TL
+    from repro_torch.models.nn import tree_leaves
+    from repro_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    runs: dict = {"whole": [], "cut": [], "resumed": []}
+
+    def record(key):
+        return lambda s, m, sec: runs[key].append((s, float(m["loss"])))
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            argv = list(RESUME_ARGV) + ["--device", str(dev)]
+            whole = TL.main(argv + ["--steps", "6"],
+                            on_metrics=record("whole"))
+            TL.main(argv + ["--steps", "4", "--ckpt-dir", tmp],
+                    on_metrics=record("cut"))
+            latest = ckpt.latest_step(tmp)
+            with open(os.path.join(tmp, f"step_{latest:08d}",
+                                   ckpt.MANIFEST)) as f:
+                dtypes = [v["dtype"] for v in json.load(f)["leaves"].values()]
+            resumed = TL.main(argv + ["--steps", "6", "--ckpt-dir", tmp],
+                              on_metrics=record("resumed"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    if latest != 4 or [s for s, _ in runs["resumed"]] != [4, 5]:
+        raise AssertionError(f"checkpoint {latest}, resumed steps "
+                             f"{runs['resumed']}")
+    if runs["cut"] + runs["resumed"] != runs["whole"]:
+        raise AssertionError(f"losses {runs['cut'] + runs['resumed']} != "
+                             f"{runs['whole']}")
+    leaves = list(zip(tree_leaves(whole.tree()), tree_leaves(resumed.tree())))
+    same = sum(torch.equal(a, b) for a, b in leaves)
+    if same != len(leaves):
+        raise AssertionError(f"{len(leaves) - same} of {len(leaves)} state "
+                             f"leaves differ after the resume")
+    out = {"losses": [loss for _, loss in runs["whole"]],
+           "leaves": len(leaves), "bf16_leaves": dtypes.count("bfloat16"),
+           "checkpoint_leaves": len(dtypes),
+           "seconds": time.perf_counter() - t_phase}
+    print(f"phase train resume {DENSE_ARCH} smoke in bf16 (deterministic "
+          f"algorithms): 4 steps, checkpoint at step {latest} "
+          f"({out['bf16_leaves']} of {len(dtypes)} leaves bfloat16), restart, "
+          f"2 steps = 6 steps straight: losses bit-identical "
+          f"{[round(x, 6) for x in out['losses']]}, all {len(leaves)} state "
+          f"leaves bit-identical; {out['seconds']:.1f} s | card {smi}")
+    return out
+
+
+def _phase_train_variants(dev, smi: str) -> dict:
+    """Each arch's smoke config (float32, 2 microbatches) trained 2 steps on
+    the card and on the CPU (the plain path) from the same weights (a
+    VLM's gates set non-zero) and batches: losses and grad norms within
+    ``TRAIN_VARIANT_TOL``.  Mamba2 and Zamba2 with ``use_kernels`` on must
+    refuse to train on the card (the conv kernel has no backward)."""
+    import importlib
+
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.nn import tree_map
+    from repro_torch.training import data
+    from repro_torch.training import optimizer as O
+    T = importlib.import_module("repro_torch.training.train_step")
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    worst = dict.fromkeys(TRAIN_VARIANT_TOL, 0.0)
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        params = M.init_params(cfg, 0, device="cpu")
+        _open_gates(params, np.random.default_rng(5))
+        dc = data.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                             seed=7)
+        mem = _memory(cfg, np.random.default_rng(6), 4)
+        tc = T.TrainConfig(microbatches=2, opt=O.OptConfig(
+            lr=1e-3, warmup_steps=0, total_steps=10))
+        got = {}
+        for device in ("cpu", dev):
+            p = tree_map(lambda t: t.to(device, copy=True), params)
+            state = T.TrainState(params=p, opt=O.init(p))
+            rows = []
+            for s in range(2):
+                state, m = T.train_step(
+                    cfg, tc, state, data.device_batch(dc, s, device),
+                    None if mem is None else mem.to(device))
+                rows.append({k: float(m[k]) for k in TRAIN_VARIANT_TOL})
+            got[str(torch.device(device).type)] = rows
+        errs = {k: max(abs(c[k] - h[k]) / abs(h[k])
+                       for c, h in zip(got["cuda"], got["cpu"]))
+                for k in TRAIN_VARIANT_TOL}
+        row = {"card": got["cuda"], "cpu": got["cpu"], "rel_err": errs}
+        for k, tol in TRAIN_VARIANT_TOL.items():
+            worst[k] = max(worst[k], errs[k])
+            if not errs[k] <= tol:
+                raise AssertionError(f"{arch}: {k} on the card vs the CPU "
+                                     f"{errs[k]:.3g} > {tol}")
+        if cfg.family in ("ssm", "hybrid"):
+            kcfg = cfg.scaled(use_kernels=True)
+            p = tree_map(lambda t: t.to(dev, copy=True), params)
+            before = conv_ops.conv1d_causal.launches
+            try:
+                T.loss_and_grads(kcfg, tc, p,
+                                 data.device_batch(dc, 0, dev))
+            except RuntimeError as exc:
+                if "no backward" not in str(exc):
+                    raise
+                row["kernel_guard"] = str(exc)
+            else:
+                raise AssertionError(f"{arch}: training with use_kernels "
+                                     f"did not raise")
+            if conv_ops.conv1d_causal.launches != before:
+                raise AssertionError(f"{arch}: the guard launched the kernel")
+        out[arch] = row
+        print(f"phase train-variants {arch} smoke: 2 steps of 4 x 32 in 2 "
+              f"microbatches, loss {got['cuda'][0]['loss']:.5f} -> "
+              f"{got['cuda'][1]['loss']:.5f}, card vs CPU rel err loss "
+              f"{errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e}"
+              + ("; use_kernels=True refused to train (no backward)"
+                 if "kernel_guard" in row else "") + f" | card {smi}")
+    out["worst_rel_err"] = worst
+    out["tol"] = TRAIN_VARIANT_TOL
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase train-variants: {len(ARCHS)} archs within "
+          f"{TRAIN_VARIANT_TOL} (worst {worst}); {out['seconds']:.1f} s")
     return out
 
 
@@ -1087,25 +1444,27 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
     after = {b: fn.launches for b, fn in counters.items()}
     metrics = driver.metrics()
     wave = {b: after[b] - before[b] for b in counters}
-    # the same traffic again under the profiler: the device's busy and idle
-    # shares of a wave, and the kernels' share of its device time
-    prof = _profile(lambda: run_wave(100), "serve-stencil wave", smi, top=6)
+    # the same traffic again under the profiler (a wave is safe to repeat:
+    # it submits fresh jobs): the device's busy and idle shares of a wave,
+    # and the kernels' share of its device time; the trace holds every
+    # stencil kernel the wave's row ops launched
+    prof = _profile(lambda: run_wave(100), "serve-stencil wave", smi, top=6,
+                    counters=tuple(counters.values()))
     rows_w = prof.pop("rows")
-    wave_prof = None
-    if prof["device_ms"]:
-        kern_w = sum(ms for ms, _, key in rows_w
-                     if any(nm in key for nm in STENCIL_KERNELS))
-        wave_prof = {"wall_ms": prof["wall_ms"],
-                     "device_ms": prof["device_ms"], "kernel_ms": kern_w,
-                     "idle_share": max(0.0, 1 - prof["device_ms"]
-                                       / prof["wall_ms"]),
-                     "kernel_share_of_device": kern_w / prof["device_ms"]}
-        print(f"phase serve-stencil profiled wave: device busy "
-              f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
-              f"(idle share {100 * wave_prof['idle_share']:.0f}%), stencil "
-              f"kernels {kern_w:.2f} ms = "
-              f"{100 * wave_prof['kernel_share_of_device']:.0f}% of device "
-              f"time | card {smi}")
+    kern_w = sum(ms for ms, _, key in rows_w
+                 if any(nm in key for nm in STENCIL_KERNELS))
+    wave_prof = {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                 "kernel_ms": kern_w, "attempts": prof["attempts"],
+                 "idle_share": max(0.0, 1 - prof["device_ms"]
+                                   / prof["wall_ms"]),
+                 "kernel_share_of_device": kern_w / prof["device_ms"],
+                 "launches": prof["counted"]}
+    print(f"phase serve-stencil profiled wave: device busy "
+          f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms "
+          f"(idle share {100 * wave_prof['idle_share']:.0f}%), stencil "
+          f"kernels {kern_w:.2f} ms = "
+          f"{100 * wave_prof['kernel_share_of_device']:.0f}% of device "
+          f"time | card {smi}")
     driver.close()
 
     # every super-batch launched each kernel once per row op of its plan
@@ -1186,26 +1545,24 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
             del ys
             call_ms = _time_ms(lambda: eng.apply_batched(xs), 5, hold=False)
             prof = _profile(lambda: eng.apply_batched(xs),
-                            f"super-batch {spec.name} {b} x16", smi, top=4)
+                            f"super-batch {spec.name} {b} x16", smi, top=4,
+                            counters=(counters[b],))
+            if prof["counted"][counters[b].__name__] != n:
+                raise AssertionError(f"{spec.name} {b}: the profiled call "
+                                     f"launched another count than {n}")
             kern = sum(ms for ms, _, key in prof.pop("rows")
                        if any(nm in key for nm in STENCIL_KERNELS))
             row[b] = {"plan": plan.describe(), "launches": n,
-                      "call_ms": call_ms,
-                      "kernel_device_ms": kern if prof["device_ms"] else None,
-                      "outside_kernel_share": (
-                          max(0.0, 1 - kern / call_ms)
-                          if prof["device_ms"] else None),
+                      "call_ms": call_ms, "kernel_device_ms": kern,
+                      "outside_kernel_share": max(0.0, 1 - kern / call_ms),
                       "gstencil_s": 16 * float(np.prod(
                           [s - 2 * spec.radius for s in bucket]))
                       / call_ms / 1e6}
             print(f"super-batch {spec.name} {plan.describe()} x16 {bucket}: "
                   f"{n} launches, "
                   f"call {call_ms:.3f} ms ({row[b]['gstencil_s']:.2f} "
-                  f"GStencil/s), kernels "
-                  + (f"{kern:.3f} ms, outside-kernel share "
-                     f"{100 * row[b]['outside_kernel_share']:.0f}%"
-                     if prof["device_ms"] else "not measured")
-                  + f" | card {smi}")
+                  f"GStencil/s), kernels {kern:.3f} ms, outside-kernel share "
+                  f"{100 * row[b]['outside_kernel_share']:.0f}% | card {smi}")
         out["super_batch"][spec.name] = row
         del xs
         torch.cuda.empty_cache()
@@ -1490,12 +1847,13 @@ def _halo_split(eng, ext, geo, per_call: int) -> dict:
     return out
 
 
-def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N) -> dict:
+def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N,
+                 label: str = "phase vet") -> dict:
     """How often a trace of one call loses device ops, and whether the
     launch audit's traces (``vet.lowering.trace_device``) ever do: ``n``
     bare traces and ``n`` audit traces of box-2d1r ``cuda_sptc`` at a
-    probe shape, each held against the audit's first count.  Raises if an
-    audit trace differs."""
+    probe shape, each held against the audit's first count (and the bare
+    traces' lost device ops counted).  Raises if an audit trace differs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import StencilEngine
@@ -1505,27 +1863,32 @@ def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N) -> dict:
                         device=dev)
     x = lowering.probe_input((18, 18), dev)
     want = lowering.audit_call(eng, x).counts
-    bare_lost = 0
+    n_ops = want["kernels"] + want["device_ops"]
+    bare_lost, lost_ops = 0, []
     for _ in range(n):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             eng(x)
             torch.cuda.synchronize()
-        bare_lost += lowering._summarize(prof.events(), True).counts != want
+        got = lowering._summarize(prof.events(), True).counts
+        bare_lost += got != want
+        lost_ops.append(n_ops - got["kernels"] - got["device_ops"])
     t0 = dict(lowering.TRACE_STATS)
     wrong = sum(lowering.profile_call(eng, x).counts != want
                 for _ in range(n))
     retaken = lowering.TRACE_STATS["retaken"] - t0["retaken"]
-    print(f"phase vet trace check box-2d1r cuda_sptc 18x18: bare traces "
-          f"that lost device ops {bare_lost}/{n}; audit traces {n} "
-          f"({retaken} retaken for a lost marker), {wrong} with other "
-          f"counts than {want['kernels']} kernels + {want['device_ops']} "
-          f"device ops | card {smi}")
+    print(f"{label} trace check box-2d1r cuda_sptc 18x18: bare traces "
+          f"that lost device ops {bare_lost}/{n} (lost of {n_ops}: at most "
+          f"{max(lost_ops)}, mean {statistics.mean(lost_ops):.2f}); audit "
+          f"traces {n} ({retaken} retaken for a lost marker), {wrong} with "
+          f"other counts than {want['kernels']} kernels + "
+          f"{want['device_ops']} device ops | card {smi}")
     if wrong:
         raise AssertionError(f"{wrong} of {n} audit traces lost device ops")
-    return {"n": n, "bare_lost": bare_lost, "audit_retaken": retaken,
-            "audit_wrong": wrong, "counts": want}
+    return {"n": n, "bare_lost": bare_lost, "bare_lost_ops_max":
+            max(lost_ops), "bare_lost_ops_mean": statistics.mean(lost_ops),
+            "audit_retaken": retaken, "audit_wrong": wrong, "counts": want}
 
 
 def _phase_halo(dev, smi: str, randn) -> dict:
@@ -2245,6 +2608,15 @@ def main() -> int:
     # none)
     launches["conv1d_causal"] = sum(
         ph["conv1d_launches"] for ph in (lm, hybrid, dense, moe, encdec, vlm))
+
+    # -- phases train, train-variants: training on the card ------------------
+    results["train"] = _phase_train(dev, smi)
+    results["train_resume"] = _phase_train_resume(dev, smi)
+    results["train_variants"] = _phase_train_variants(dev, smi)
+    # the profiler's head loss after minutes of load, bare against the
+    # audit's traces (phase vet took the same check near the run's start)
+    results["trace_check_late"] = _trace_check(dev, smi, TRACE_CHECK_N // 4,
+                                               label="after training")
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

@@ -1,7 +1,9 @@
 """Public wrapper of the depthwise causal conv1d kernel.
 
 On a CUDA tensor :func:`conv1d_causal` launches the kernel or raises; it
-runs the plain torch version only for a tensor that lies on the CPU.
+runs the plain torch version only for a tensor that lies on the CPU.  The
+kernel has no backward (nor has the reference's), so on the card it
+raises while autograd would record a grad through ``x`` or ``w``.
 Unlike the reference (``repro/kernels/conv1d/ops.py:18-21``) it pads
 nothing: the kernel masks the causal history and the ragged edges itself,
 and reads ``x`` through its strides, so the model's column slice of the
@@ -40,6 +42,12 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             return conv1d_causal_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # the kernel writes a fresh buffer that autograd cannot see: its
+        # output would silently carry no gradient to x or w
+        raise RuntimeError(
+            "conv1d_causal's CUDA kernel has no backward; train with "
+            "use_kernels=False (the reference trains on its plain conv too)")
     if w.shape[0] > MAX_TAPS:
         raise ValueError(f"the kernel takes at most {MAX_TAPS} taps, got "
                          f"{w.shape[0]}")

@@ -7,7 +7,10 @@ that holds reference parameters passes them as NumPy arrays
 MoE layer's ``(L, E, d, f)`` experts among them — or ``(G, E, ...)``
 group leaves);
 these helpers rebuild the port's objects, so both packages compute the
-same thing from the same weights.
+same thing from the same weights.  :func:`train_state_from_numpy` carries a
+training state across (float32 moments and master weights), and
+:func:`tree_to_numpy` is the way back: a port tree of per-layer lists as
+the reference's stacked arrays.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.model import FAMILY_KEYS, Params
-from repro_torch.models.nn import tree_leaves
+from repro_torch.models.nn import tree_leaves, tree_map
 
 #: reference field name -> port field name
 RENAMED = {"use_pallas": "use_kernels"}
@@ -81,10 +84,15 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     tensor is cast to ``cfg.dtype`` (as the reference casts them at use)
     on ``device`` (``None``: the card).
     """
+    return _params(tree, cfg, cfg.torch_dtype, resolve_device(device))
+
+
+def _params(tree: Mapping[str, Any], cfg: ModelConfig, dtype: torch.dtype,
+            device: torch.device) -> Params:
+    """A params-shaped reference tree in the port's layout, every leaf a
+    ``dtype`` tensor on ``device``."""
     if cfg.family not in FAMILY_KEYS:
         raise ValueError(f"unknown family {cfg.family}")
-    device = resolve_device(device)
-    dtype = cfg.torch_dtype
     stacked = FAMILY_KEYS[cfg.family]
     out = _tree({k: v for k, v in tree.items() if k not in stacked}, dtype,
                 device)
@@ -92,4 +100,43 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
         layers = _unstack(_tree(tree[key], dtype, device))
         out[key] = [_unstack(g) for g in layers] if key == "groups" \
             else layers
+    return out
+
+
+def train_state_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                           device: Device = None):
+    """The port's ``TrainState`` from the reference's ``state.tree()``,
+    ``{"params", "opt": {"step", "mu", "nu", "master"}}`` as NumPy arrays:
+    the params in ``cfg.dtype``, the moments and master weights in float32
+    (all four laid out as :func:`params_from_numpy` lays out the params),
+    the step an int32 0-d tensor, on ``device`` (``None``: the card)."""
+    from repro_torch.training.optimizer import OptState
+    from repro_torch.training.train_step import TrainState
+    device = resolve_device(device)
+    opt = tree["opt"]
+    f32 = {k: _params(opt[k], cfg, torch.float32, device)
+           for k in ("mu", "nu", "master")}
+    step = torch.as_tensor(np.array(opt["step"]), dtype=torch.int32,
+                           device=device)
+    return TrainState(params=_params(tree["params"], cfg, cfg.torch_dtype,
+                                     device),
+                      opt=OptState(step=step, **f32))
+
+
+def tree_to_numpy(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """A params-shaped port tree (params, grads, moments) as the
+    reference's: per-layer lists stacked to ``(L, ...)`` and ``groups`` to
+    ``(G, E, ...)`` NumPy arrays, every float leaf float32 (bfloat16 widens
+    exactly)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    def stack(layers):
+        return tree_map(lambda *ls: np.stack(ls), *layers)
+    out = {k: tree_map(host, v) for k, v in tree.items()}
+    for key in FAMILY_KEYS[cfg.family]:
+        layers = out[key]
+        out[key] = stack([stack(g) for g in layers]) if key == "groups" \
+            else stack(layers)
     return out

@@ -17,14 +17,19 @@ The counterpart of ``repro/models/model.py``:
 The reference's ``lax.scan`` over stacked layer parameters is a Python loop
 over lists of per-layer parameter dicts (a hybrid or VLM model's
 ``groups`` is a list of lists); its sharding ``constrain`` is a no-op on
-one card and is dropped.
+one card and is dropped.  Its remat (``jax.checkpoint`` of each scanned
+body) is ``torch.utils.checkpoint`` around each layer body, applied when
+autograd records the forward (see :func:`_remat`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import functools
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
@@ -34,6 +39,35 @@ from repro_torch.models.nn import ParamBuilder
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+
+
+#: the products that remat policy ``"dots"`` keeps (JAX's
+#: ``checkpoint_dots``: every dot's output is saved, the rest recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _remat(cfg: ModelConfig, params: Params) -> Callable:
+    """``fn -> fn`` under activation checkpointing (``model.py:45-52``).
+
+    Policy ``"none"`` (or ``cfg.remat`` off) keeps every activation;
+    ``"dots"`` keeps the matmul outputs and recomputes the rest; any other
+    policy (``"full"``) keeps only each layer body's inputs and recomputes
+    the body in the backward pass.  As ``jax.checkpoint`` acts only under
+    differentiation, this applies only while autograd records the forward
+    (grad enabled and the parameters requiring grad): serving is
+    unchanged.  Each layer is one checkpointed body (the reference's
+    hybrid and VLM models checkpoint a whole group; the values are the
+    same)."""
+    if (not cfg.remat or cfg.remat_policy == "none"
+            or not torch.is_grad_enabled()
+            or not params["embed"].requires_grad):
+        return lambda fn: fn
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(_DOTS))
+    return lambda fn: functools.partial(checkpoint, fn, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +317,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     x = embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
     q_pos = _positions(b, s, tokens.device)
+    remat = _remat(cfg, params)
+    dense_block = remat(_dense_block)
     states, kvs, aux = [], [], 0.0
     kv: Optional[Dict[str, Any]] = None
     if fam in ("dense", "moe", "vlm"):                  # model.py:243-303
@@ -292,11 +328,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             groups = list(zip(params["cross"], params["groups"]))
         else:
             groups = [(None, params["layers"])]
+        cross_block = remat(_cross_block)
         for cp, gp in groups:
             if cp is not None:
-                x = _cross_block(cp, x, mem, cfg, q_pos, i_pos)
+                x = cross_block(cp, x, mem, cfg, q_pos, i_pos)
             for pl in gp:
-                x, a, lkv = _dense_block(pl, x, cfg, q_pos)
+                x, a, lkv = dense_block(pl, x, cfg, q_pos)
                 aux = aux + a
                 if collect_kv:
                     kvs.append(lkv)
@@ -306,8 +343,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     if fam == "encdec":                                 # model.py:305-340
         mem = encode(params, cfg, memory)
         m_pos = _positions(b, mem.shape[1], mem.device)
+        dec_block = remat(_dec_block)
         for pl in params["dec_layers"]:
-            x, lkv = _dec_block(pl, x, mem, cfg, q_pos, m_pos)
+            x, lkv = dec_block(pl, x, mem, cfg, q_pos, m_pos)
             if collect_kv:
                 kvs.append(lkv)
         if collect_kv:
@@ -317,12 +355,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
         groups, shared = [params["layers"]], None
     else:                                                   # hybrid
         groups, shared = params["groups"], params["shared"]
+    mamba_block = remat(_mamba_block)
     for gp in groups:
         for pl in gp:
-            x, st = _mamba_block(pl, x, cfg, collect_state=collect_kv)
+            x, st = mamba_block(pl, x, cfg, collect_state=collect_kv)
             states.append(st)
         if shared is not None:
-            x, a, lkv = _dense_block(shared, x, cfg, q_pos)
+            x, a, lkv = dense_block(shared, x, cfg, q_pos)
             aux = aux + a
             if collect_kv:
                 kvs.append(lkv)
@@ -342,10 +381,38 @@ def encode(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     dt = cfg.torch_dtype
     x = frames.to(dt) + params["enc_pos"][None].to(dt)
     pos = _positions(x.shape[0], x.shape[1], x.device)
+    enc_block = _remat(cfg, params)(_enc_block)
     for pl in params["enc_layers"]:
-        h = L.apply_norm(pl["attn_norm"], x, cfg)
-        x = x + L.attention(pl["attn"], h, cfg, q_pos=pos, causal=False,
-                            rope=False, block_kv=cfg.attn_block_kv)
-        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["mlp_norm"], x, cfg),
-                            cfg)
+        x = enc_block(pl, x, cfg, pos)
     return L.apply_norm(params["enc_norm"], x, cfg)
+
+
+def _enc_block(p, x: Tensor, cfg: ModelConfig, pos: Tensor) -> Tensor:
+    """A Whisper encoder layer: bidirectional attention without RoPE, then
+    the MLP."""
+    h = L.apply_norm(p["attn_norm"], x, cfg)
+    x = x + L.attention(p["attn"], h, cfg, q_pos=pos, causal=False,
+                        rope=False, block_kv=cfg.attn_block_kv)
+    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["mlp_norm"], x, cfg),
+                           cfg)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params: Params, cfg: ModelConfig, tokens: Tensor,
+            memory: Optional[Tensor] = None, aux_weight: float = 0.01):
+    """Next-token cross-entropy over the float32 logits of ``tokens`` (B,
+    S+1), plus ``aux_weight`` times the MoE aux loss (``model.py:370-380``).
+
+    Returns ``(loss, {"nll": nll, "aux": aux})``, all float32 0-d tensors
+    (``aux`` is 0 without MoE layers).  Under autograd each layer body is
+    rematerialised as ``cfg.remat`` / ``cfg.remat_policy`` say."""
+    logits, aux, _ = forward(params, cfg, tokens[:, :-1], memory=memory)
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}

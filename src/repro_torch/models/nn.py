@@ -55,5 +55,25 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a nested dict / list (and the matching
+    leaves of ``rest``, trees of the same structure), in a tree of that
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(skeleton: Any, leaves) -> Any:
+    """A tree of ``skeleton``'s structure holding ``leaves`` in the order
+    :func:`tree_leaves` lists ``skeleton``'s."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), skeleton)
+
+
 def count_params(params: Params) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))

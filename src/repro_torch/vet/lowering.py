@@ -135,13 +135,17 @@ COUNT_KEYS = ("programs",) + tuple(OP_CLASSES) + ("uploads",)
 #: float32: |got - direct| <= OUTPUT_TOL * (1 + |direct|)
 OUTPUT_TOL = 3e-5
 
-#: a trace on the card now and then loses the device events at its head
-#: (on an H100, torch 2.11: from one to all of a call's device ops); every
-#: card trace opens with spin kernels, and a trace that lost them all is
-#: taken again, up to ``TRACE_ATTEMPTS`` times
+#: a trace on the card loses the device events at its head (on an H100,
+#: torch 2.11: early in a process now and then, from one to all of a
+#: call's device ops; after minutes of load, in most traces, a handful of
+#: its first device events however long they run and whatever the host
+#: does before them: chip_smoke.py's trace check after training); every
+#: card trace opens with ``LEAD_SPINS`` short spins launched back to back
+#: (doubled on every retake), which the loss eats first, and a trace that
+#: lost them all is taken again, up to ``TRACE_ATTEMPTS`` times
 MARKER_KERNEL = "spin_kernel"
-MARKER_CYCLES = 200_000
-MARKERS = 2
+LEAD_SPINS = 64
+LEAD_CYCLES = 2_000
 TRACE_ATTEMPTS = 8
 #: card traces taken / retaken by ``trace_device`` in this process
 TRACE_STATS = {"traces": 0, "retaken": 0}
@@ -271,13 +275,13 @@ def trace_device(fn: Callable[[], object], device: torch.device):
     """``(events, result, attempts)`` of one profiled call of ``fn()`` on
     the card.
 
-    The trace opens with ``MARKERS`` ``MARKER_KERNEL`` spins on
-    ``device``'s stream, the device idle before and between them; since
-    lost events are those at a trace's head, a trace that holds a marker
-    holds every device op of the call.  A trace without one is taken
+    The trace opens with ``LEAD_SPINS`` short ``MARKER_KERNEL`` spins on
+    ``device``'s stream (doubled on each retake), synced before the call;
+    since lost events are those at a trace's head, a trace that holds a
+    spin holds every device op of the call.  A trace without one is taken
     again, so ``fn`` runs ``attempts`` times (1 + the retakes) and a
     caller that counts its launches counts them all; after
-    ``TRACE_ATTEMPTS`` such traces this raises.  The markers are left for
+    ``TRACE_ATTEMPTS`` such traces this raises.  The spins are left for
     the caller to skip (``is_marker``)."""
     seen = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -286,9 +290,9 @@ def trace_device(fn: Callable[[], object], device: torch.device):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with torch.cuda.device(device):
-                for _ in range(MARKERS):
-                    torch.cuda._sleep(MARKER_CYCLES)
-                    torch.cuda.synchronize()
+                for _ in range(LEAD_SPINS << (attempt - 1)):
+                    torch.cuda._sleep(LEAD_CYCLES)
+                torch.cuda.synchronize()
             out = fn()
             torch.cuda.synchronize(device)
         events = prof.events()
@@ -301,7 +305,7 @@ def trace_device(fn: Callable[[], object], device: torch.device):
         seen.append(len(on_dev))
     raise RuntimeError(
         f"torch.profiler lost the head of {TRACE_ATTEMPTS} traces in a row "
-        f"(device events per trace: {seen}, with no marker of {MARKERS}): "
+        f"(device events per trace: {seen}, with none of its spins): "
         "no device count can be trusted")
 
 

@@ -168,3 +168,35 @@ def test_cuda_conv1d_matches_plain(cuda_device, b, t, d, dtype, strided):
     tol = 3e-5 if dt == torch.float32 else 1e-2
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", ["x", "w"])
+def test_cuda_conv1d_refuses_to_drop_gradients(cuda_device, needs):
+    """The kernel has no backward: on the card the wrapper raises, before
+    launching, while autograd would record a grad through x or w; with
+    grad off it launches."""
+    x = torch.randn(2, 8, 16, device=cuda_device,
+                    requires_grad=needs == "x")
+    w = torch.randn(4, 16, device=cuda_device, requires_grad=needs == "w")
+    before = conv_ops.conv1d_causal.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_ops.conv1d_causal(x, w)
+    assert conv_ops.conv1d_causal.launches == before
+    with torch.no_grad():
+        conv_ops.conv1d_causal(x, w)
+    assert conv_ops.conv1d_causal.launches == before + 1
+
+
+def test_conv1d_plain_version_trains_on_the_cpu():
+    """On a CPU tensor the wrapper's plain version carries gradients to x
+    and w, equal to those of the reference's oracle (float32)."""
+    _, _, x, w = _inputs(2, 12, 9, 4, seed=3)
+    grads = []
+    for fn in (conv_ops.conv1d_causal, conv1d_causal_ref):
+        xt = torch.tensor(x, requires_grad=True)
+        wt = torch.tensor(w, requires_grad=True)
+        (fn(xt, wt) ** 2).sum().backward()
+        grads.append((xt.grad, wt.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

@@ -533,6 +533,23 @@ def test_retaken_trace_counts_every_launch(monkeypatch, lose, planted,
     assert lowering.is_marker(SimpleNamespace(name="spin_kernel"))
 
 
+def test_retake_doubles_the_lead_spins(monkeypatch):
+    """Every card trace opens with ``LEAD_SPINS`` short spins; each retake
+    doubles them, so a head loss that grows with the card's load is
+    outrun."""
+    traces = _StubTraces(2, lose=(1, 2))
+    x = _stub_card(monkeypatch, traces)
+    spins = [[]]
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda c: spins[-1].append(c))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: spins.append([]))
+    a = lowering.profile_call(lambda _x: None, x)
+    assert a.attempts == 3
+    bursts = [b for b in spins if b]
+    n, c = lowering.LEAD_SPINS, lowering.LEAD_CYCLES
+    assert bursts == [[c] * n, [c] * 2 * n, [c] * 4 * n]
+
+
 def test_trace_that_keeps_losing_its_head_raises(monkeypatch):
     traces = _StubTraces(2, lose=range(1, lowering.TRACE_ATTEMPTS + 1))
     x = _stub_card(monkeypatch, traces)
