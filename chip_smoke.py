@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each kernel against its plain torch version on the card, and drives
-thirteen paths, each with the launch counters set to 0 just before it and
+fourteen paths, each with the launch counters set to 0 just before it and
 read just after:
 
 * the stencil engine (``StencilEngine`` with the ``cuda_sptc``,
@@ -69,7 +69,14 @@ read just after:
   bf16 smoke config through the launcher's checkpoints, bit for bit under
   deterministic algorithms, and every arch's smoke config trained 2 steps
   on the card against the CPU (Mamba2 and Zamba2 with ``use_kernels`` on
-  must refuse to train: the conv kernel has no backward).
+  must refuse to train: the conv kernel has no backward);
+* the fleet dry-run (``python -m repro_torch.launch.dryrun``, in child
+  processes): five cells of the ten archs traced on DTensors over a fake
+  256- or 512-card H100 fleet, each record printed as a prediction; and
+  its check on this card — Qwen3-1.7B's phase-train cell traced on a
+  (1, 1) mesh must predict the argument bytes and FLOPs of one real step
+  on the card exactly and its peak within 25 % of phase train's
+  ``max_memory_allocated``.
 
 Phase vet also plants one retake: the first trace of one full-size audit
 loses its markers, and the audit's launches must count the retaken call.
@@ -178,6 +185,37 @@ TRACE_CHECK_N = 200
 PLANTED_RETAKE = ("box-2d1r", "cuda_sptc")
 #: device names of the three stencil kernels
 STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
+#: phase dryrun: the fleet cells ``python -m repro_torch.launch.dryrun``
+#: traces in child processes, (arch, cell, on the multi-pod fleet)
+DRYRUN_CELLS = (("qwen3-1.7b", "decode_32k", False),
+                ("mamba2-2.7b", "long_500k", True),
+                ("granite-moe-3b-a800m", "prefill_32k", False),
+                ("mixtral-8x22b", "decode_32k", False),
+                ("llama-3.2-vision-11b", "prefill_32k", False))
+#: seconds the dry-run's child processes may take, together
+DRYRUN_TIMEOUT = 420
+#: the one-card check: the traced peak against phase train's
+#: ``max_memory_allocated`` (less what was held before it), relative
+DRYRUN_PEAK_TOL = 0.25
+#: the one-card trace, in a child process (the fake process group is its
+#: default group): phase train's cell on a (1, 1) mesh of the card
+DRYRUN_ONE_CARD = """
+import json, sys
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import mesh as MS
+from repro_torch.launch import train as TL
+from repro_torch.launch.dryrun import lower_cell
+args = TL.parse_args(json.loads(sys.argv[1]))
+cfg, tc, _ = TL.configs(args)
+try:
+    rec = lower_cell(args.arch, ShapeCell("train", "train", args.seq,
+                                          args.batch),
+                     cfg_override=cfg, tc=tc,
+                     mesh_override=((1, 1), ("data", "model")))
+finally:
+    MS.release()
+print(json.dumps(rec))
+"""
 
 
 def _time_ms(fn, reps: int, hold: bool = True) -> float:
@@ -1230,6 +1268,138 @@ def _phase_train_variants(dev, smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase train-variants: {len(ARCHS)} archs within "
           f"{TRAIN_VARIANT_TOL} (worst {worst}); {out['seconds']:.1f} s")
+    return out
+
+
+def _phase_dryrun(dev, smi: str, train: dict) -> dict:
+    """The fleet dry-run (``repro_torch.launch.dryrun``): the
+    ``DRYRUN_CELLS`` traced in child processes on ``cuda`` meshes of the
+    fake fleet, each record printed (predictions: H100 SXM datasheet
+    constants, nothing measured); and the check that holds the dry-run to
+    the card — phase train's cell traced on a (1, 1) mesh (a child) against
+    one real step on the card counted by the same ``DeviceCounter``:
+    argument bytes and FLOPs equal, the traced peak within
+    ``DRYRUN_PEAK_TOL`` of phase train's ``max_memory_allocated``."""
+    import os
+
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.dryrun import count_step
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = []
+    try:
+        for arch, cell, multi in DRYRUN_CELLS:
+            out = OUT_DIR / f"dryrun_{arch}_{cell}.jsonl"
+            out.unlink(missing_ok=True)
+            log = open(OUT_DIR / f"dryrun_{arch}_{cell}.log", "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--cell", cell, "--out", str(out),
+                   "--no-resume"] + (["--multi-pod"] if multi else [])
+            children.append(((arch, cell, out), log, subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                text=True)))
+        one_log = open(OUT_DIR / "dryrun_one_card.log", "w")
+        one = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_ONE_CARD, json.dumps(TRAIN_ARGV)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=one_log,
+            text=True)
+        children.append((None, one_log, one))
+
+        # meanwhile, one real step of phase train's cell on the card
+        args = TL.parse_args(list(TRAIN_ARGV))
+        cfg, tc, _ = TL.configs(args)
+        cell = ShapeCell("train", "train", args.seq, args.batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        conv_ops.conv1d_causal.launches = 0
+        counted = count_step(cfg, cell, tc, dev)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - held
+        launches = conv_ops.conv1d_causal.launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if launches:
+            raise AssertionError(f"the counted step launched the conv "
+                                 f"kernel {launches} times")
+
+        deadline = time.monotonic() + DRYRUN_TIMEOUT
+        stdout, _ = one.communicate(
+            timeout=max(1.0, deadline - time.monotonic()))
+        for _, _, p in children:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for _, log, p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [(what, p.returncode) for what, _, p in children if p.returncode]
+    if bad:
+        raise AssertionError(f"dry-run children failed: {bad} (logs under "
+                             f"{OUT_DIR})")
+
+    out: dict = {"cells": [], "card": smi}
+    for (arch, cell_name, path), _, _ in children[:-1]:
+        rec = json.loads(path.read_text().splitlines()[0])
+        if not rec.get("ok") or rec["t_memory_s"] <= 0 or \
+                rec["chips"] not in (256, 512):
+            raise AssertionError(f"dry-run {arch} x {cell_name}: {rec}")
+        out["cells"].append(rec)
+        print(f"phase dryrun {arch} x {cell_name} on {rec['mesh']} "
+              f"({rec['chips']} H100s; prediction, H100 SXM datasheet "
+              f"constants): {rec['per_device_gb']:.2f} GB per device "
+              f"(args {rec['arg_gb']:.2f}), compute "
+              f"{rec['t_compute_s']:.4g} s, memory {rec['t_memory_s']:.4g} "
+              f"s, collective {rec['t_collective_s']:.4g} s -> "
+              f"{rec['bottleneck']}, mfu at roofline "
+              f"{rec['mfu_at_roofline']:.4f}; {rec['n_collectives']} "
+              f"collectives {rec['coll_by_axis_mb']} MB; "
+              f"{len(rec['replicated'])} kinds of port-added moves; traced "
+              f"in {rec['trace_s']} s")
+        print("  " + json.dumps(rec))
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    measured = train["peak_memory_gb"] - train["held_before_gb"]
+    predicted = rec["peak_bytes"] / 1e9
+    one_card = {
+        "arch": args.arch, "batch": args.batch, "seq": args.seq,
+        "microbatches": args.microbatches, "dtype": cfg.dtype,
+        "arg_bytes_predicted": rec["arg_bytes"],
+        "arg_bytes_card": counted.arg_bytes,
+        "flops_predicted": rec["flops_perdev"], "flops_card": counted.flops,
+        "peak_gb_predicted": predicted,
+        "peak_gb_phase_train": measured,
+        "peak_gb_counted_step": step_peak / 1e9,
+        "peak_gb_counter_on_card": counted.peak / 1e9,
+        "peak_rel_err": predicted / measured - 1, "trace_s": rec["trace_s"]}
+    out["one_card"] = one_card
+    print(f"phase dryrun one-card check, {args.arch} train "
+          f"{args.batch} x {args.seq} in {args.microbatches} microbatches "
+          f"({cfg.dtype}, remat {cfg.remat_policy}), prediction | "
+          f"measurement: argument bytes {rec['arg_bytes']:,} | "
+          f"{counted.arg_bytes:,} (the card's state and tokens); FLOPs "
+          f"{rec['flops_perdev']:,} | {counted.flops:,} (the same counter "
+          f"on one real step); peak {predicted:.2f} GB | {measured:.2f} GB "
+          f"(phase train's torch.cuda.max_memory_allocated less "
+          f"{train['held_before_gb']:.2f} GB held before it; "
+          f"{100 * one_card['peak_rel_err']:+.1f}%), this step's "
+          f"max_memory_allocated {step_peak / 1e9:.2f} GB, the counter's "
+          f"live peak on the card {counted.peak / 1e9:.2f} GB | card {smi}")
+    if rec["arg_bytes"] != counted.arg_bytes:
+        raise AssertionError("dry-run argument bytes differ from the card's")
+    if rec["flops_perdev"] != counted.flops:
+        raise AssertionError("dry-run FLOPs differ from the card's count")
+    if abs(one_card["peak_rel_err"]) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dry-run peak {predicted:.2f} GB against "
+                             f"{measured:.2f} GB on the card")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase dryrun: {out['seconds']:.1f} s")
     return out
 
 
@@ -2617,6 +2787,9 @@ def main() -> int:
     # audit's traces (phase vet took the same check near the run's start)
     results["trace_check_late"] = _trace_check(dev, smi, TRACE_CHECK_N // 4,
                                                label="after training")
+
+    # -- phase dryrun: the fleet dry-run, and its check on this card --------
+    results["dryrun"] = _phase_dryrun(dev, smi, results["train"])
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

@@ -107,3 +107,14 @@ SHAPE_CELLS: Tuple[ShapeCell, ...] = (
 )
 
 SHAPE_BY_NAME = {c.name: c for c in SHAPE_CELLS}
+
+# long_500k needs sub-quadratic attention: SSM/hybrid families qualify, and
+# SWA archs (bounded KV); pure full-attention archs are skipped
+LONG_CONTEXT_OK = ("mamba2-2.7b", "zamba2-2.7b", "starcoder2-7b",
+                   "mixtral-8x22b")
+
+
+def cell_applicable(arch: str, cell: ShapeCell, family: str) -> bool:
+    if cell.name == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True

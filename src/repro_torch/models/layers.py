@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models.nn import ParamBuilder
 
 Tensor = torch.Tensor
@@ -42,9 +43,9 @@ _PAD_POS = torch.iinfo(torch.int32).max
 
 def init_norm(pb: ParamBuilder, cfg: ModelConfig, d: Optional[int] = None):
     d = d or cfg.d_model
-    p = {"scale": pb.param((d,), init="ones")}
+    p = {"scale": pb.param((d,), axes=("embed",), init="ones")}
     if cfg.norm == "ln":
-        p["bias"] = pb.param((d,), init="zeros")
+        p["bias"] = pb.param((d,), axes=("embed",), init="zeros")
     return p
 
 
@@ -106,24 +107,65 @@ def apply_rope(x: Tensor, pos: Tensor, cfg: ModelConfig) -> Tensor:
 def init_attention(pb: ParamBuilder, cfg: ModelConfig, cross: bool = False):
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p = {
-        "wq": pb.param((d, h, dh)),
-        "wk": pb.param((d, kh, dh)),
-        "wv": pb.param((d, kh, dh)),
-        "wo": pb.param((h, dh, d)),
+        "wq": pb.param((d, h, dh), axes=("embed", "q_heads", "head")),
+        "wk": pb.param((d, kh, dh), axes=("embed", "kv_heads", "head")),
+        "wv": pb.param((d, kh, dh), axes=("embed", "kv_heads", "head")),
+        "wo": pb.param((h, dh, d), axes=("q_heads", "head", "embed")),
     }
     if cfg.qk_norm:
-        p["q_norm"] = pb.param((dh,), init="ones")
-        p["k_norm"] = pb.param((dh,), init="ones")
+        p["q_norm"] = pb.param((dh,), axes=("head",), init="ones")
+        p["k_norm"] = pb.param((dh,), axes=("head",), init="ones")
     if cross:
-        p["gate"] = pb.param((), init="zeros")       # tanh-gated xattn
+        p["gate"] = pb.param((), axes=(), init="zeros")  # tanh-gated xattn
     return p
+
+
+def project(eq: str, x: Tensor, w: Tensor) -> Tensor:
+    """``torch.einsum(eq, x, w)``: activations ``x`` times a weight.
+
+    On DTensors, on local shards, in the weight's layout: on each mesh dim
+    the weight splits a dim, ``x`` is split on the same letter where it
+    has it (else replicated there) and the output is split on that letter
+    (or a partial sum over it when contracted); on the other mesh dims
+    ``x`` keeps its batch split (:func:`sharding.batch_placements`).
+    DTensor would flatten the weight's head dims into one, which torch
+    2.11 refuses when the inner one is split (``head_fallback``)."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (batch_placements,
+                                                  from_local, to_local)
+    ins, out = eq.split("->")
+    xl, wl = ins.split(",")
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    xpl, wpl, opl = [], [], []
+    for bp, wp in zip(batch_placements(x) if is_dtensor(x) else rep,
+                      w.placements if is_dtensor(w) else rep):
+        letter = wl[wp.dim] if isinstance(wp, Shard) else \
+            xl[0] if isinstance(bp, Shard) else None
+        xpl.append(Shard(xl.index(letter)) if letter and letter in xl
+                   else Replicate())
+        wpl.append(Shard(wl.index(letter)) if letter and letter in wl
+                   else Replicate())
+        opl.append(Replicate() if letter is None else
+                   Shard(out.index(letter)) if letter in out else Partial())
+    opl = tuple(opl)
+    y = torch.einsum(eq, to_local(x, mesh, tuple(xpl), "projection input",
+                                  opl),
+                     to_local(w, mesh, tuple(wpl), "projection weight", opl))
+    return from_local(y, mesh, opl)
 
 
 def _qkv(p, x: Tensor, ctx: Tensor, cfg: ModelConfig, q_pos: Tensor,
          kv_pos: Tensor, rope: bool):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", ctx, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", ctx, p["wv"].to(x.dtype))
+    q = constrain(project("bsd,dhk->bshk", x, p["wq"].to(x.dtype)),
+                  ("batch", "seq", "q_heads", "head"), "qkv")
+    k = constrain(project("btd,dhk->bthk", ctx, p["wk"].to(x.dtype)),
+                  ("batch", "kv_seq", "kv_heads", "head"), "qkv")
+    v = constrain(project("btd,dhk->bthk", ctx, p["wv"].to(x.dtype)),
+                  ("batch", "kv_seq", "kv_heads", "head"), "qkv")
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -135,7 +177,7 @@ def _qkv(p, x: Tensor, ctx: Tensor, cfg: ModelConfig, q_pos: Tensor,
 
 def out_proj(o: Tensor, wo: Tensor) -> Tensor:
     """(B, S, H, Dh) attention output -> (B, S, D)."""
-    return torch.einsum("bshk,hkd->bsd", o, wo.to(o.dtype))
+    return project("bshk,hkd->bsd", o, wo.to(o.dtype))
 
 
 def _heads_first(q: Tensor, kh: int) -> Tensor:
@@ -271,11 +313,23 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     (B,T,Kh,D); q_pos (B,1), kv_pos (B,T) with -1 for an empty slot.
 
     ``causal=False`` (cross-attention over a memory) masks only the empty
-    slots.
+    slots.  On DTensors: :func:`_decode_parallel`.
     """
-    b, _, h, d = q.shape
+    if is_dtensor(q):
+        return _decode_parallel(q, k_cache, v_cache, q_pos, kv_pos,
+                                window=window, causal=causal)
+    return _decode(q, k_cache, v_cache, q_pos, kv_pos, window, causal,
+                   q.shape[-1])
+
+
+def _decode(q, k_cache, v_cache, q_pos, kv_pos, window, causal, d: int,
+            reduce=None) -> Tensor:
+    """:func:`decode_attention` of head dim ``d``; ``reduce`` sums the
+    (B, Kh, 1, G, T) scores over the devices that split the head dim."""
     kh = k_cache.shape[2]
     sc = _scores(_heads_first(q * (1.0 / math.sqrt(d)), kh), k_cache, 1)
+    if reduce is not None:
+        sc = reduce(sc)
     kp = kv_pos[:, None, None, None, :]
     qp = q_pos[:, None, :, None, None]
     msk = kp >= 0
@@ -287,11 +341,88 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     return _heads_last(_pv(p.to(v_cache.dtype), v_cache), q.dtype)
 
 
+def _layouts(q, k):
+    """(mesh, q's, k's, q_pos's and kv_pos's placements) of an attention
+    of DTensor q (B, S, H, D) over k (B, T, Kh, D): q as the logical axes
+    ``(batch, seq, kv_heads)`` say under the rules — the heads split only
+    where the KV heads divide, so each device's query heads attend its own
+    KV heads — and k, v the same but whole over T, since a chunk of
+    queries attends every key; each position tensor as its tensor's dims
+    0 and 1."""
+    from repro_torch.distributed.sharding import act_placements, keep_dims
+    mesh = q.device_mesh
+    qpl = act_placements(("batch", "seq", "kv_heads"),
+                         (q.shape[0], q.shape[1], k.shape[2]), mesh)
+    kpl = keep_dims(qpl, (0, 2))
+    return mesh, qpl, kpl, keep_dims(qpl, (0, 1)), keep_dims(qpl, (0,))
+
+
+def _heads_parallel(fn, q, k, v, q_pos, kv_pos, *args, **kw):
+    """``fn(q, k, v, q_pos, kv_pos, *args, **kw)`` — an attention of q
+    (B, S, H, D) over k, v (B, T, Kh, D) — on DTensors: each device
+    attends its own batch rows, its own heads where the KV heads are
+    split and its own queries where the sequence is (:func:`_layouts`),
+    on local tensors (the reference's GSPMD layout of the attention
+    einsums; DTensor would gather the heads to flatten them with the
+    batch into one matmul batch dim).  Inputs are laid out so with
+    :func:`sharding.to_local` (noted when it communicates); plain
+    positions are the same on every device."""
+    from repro_torch.distributed.sharding import from_local, to_local
+    mesh, qpl, kpl, qppl, kppl = _layouts(q, k)
+    o = fn(to_local(q, mesh, qpl, "attention q", qpl),
+           to_local(k, mesh, kpl, "attention k", qpl),
+           to_local(v, mesh, kpl, "attention v", qpl),
+           to_local(q_pos, mesh, qppl, "positions"),
+           to_local(kv_pos, mesh, kppl, "positions"), *args, **kw)
+    return from_local(o, mesh, qpl)
+
+
+def _decode_parallel(q, k_cache, v_cache, q_pos, kv_pos, *, window, causal):
+    """:func:`decode_attention` on DTensors.  Where the rules with
+    ``head_fallback`` split the head dim — the layout the reference gives
+    a decode cache whose KV heads do not divide the tensor-parallel axis
+    — each device holds a slice of every head's dim: its partial scores
+    are summed over the mesh dims of that split (B x H x T, far smaller
+    than the cache) and it weights its own slice of V.  Otherwise
+    :func:`_heads_parallel`."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.distributed.sharding import (act_placements, from_local,
+                                                  keep_dims, split_by,
+                                                  to_local)
+    mesh = q.device_mesh
+    b, s, _, d = q.shape
+    dpl = act_placements(("batch", "seq", "kv_heads", "head"),
+                         (b, s, k_cache.shape[2], d), mesh,
+                         head_fallback=True)
+    dims = split_by(dpl, 3)
+    if not dims:
+        return _heads_parallel(decode_attention, q, k_cache, v_cache, q_pos,
+                               kv_pos, window=window, causal=causal)
+    rows = keep_dims(dpl, (0,))
+    part = tuple(Partial() if i in dims else p for i, p in enumerate(rows))
+
+    def reduce(sc):
+        return from_local(sc, mesh, part).redistribute(mesh, rows) \
+            .to_local()
+    kpl = keep_dims(dpl, (0, 2, 3))
+    o = _decode(to_local(q, mesh, dpl, "attention q"),
+                to_local(k_cache, mesh, kpl, "attention k"),
+                to_local(v_cache, mesh, kpl, "attention v"),
+                to_local(q_pos, mesh, keep_dims(dpl, (0, 1)), "positions"),
+                to_local(kv_pos, mesh, rows, "positions"), window, causal,
+                d, reduce)
+    return from_local(o, mesh, dpl)
+
+
 def attention_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                    kv_pos: Tensor, cfg: ModelConfig, *, causal: bool,
                    block_kv: int = 1024) -> Tensor:
     """Dispatch: the banded sliding-window path (when enabled) or the
-    blocked/flash one."""
+    blocked/flash one (on DTensors: :func:`_heads_parallel`)."""
+    if is_dtensor(q):
+        return _heads_parallel(attention_core, q, k, v, q_pos, kv_pos, cfg,
+                               causal=causal, block_kv=block_kv)
     window = cfg.sliding_window if causal else None
     if (causal and window and cfg.banded_attention
             and q.shape[1] > 1 and q.shape[1] == k.shape[1]):
@@ -325,9 +456,11 @@ def attention(p, x: Tensor, cfg: ModelConfig, *, q_pos: Tensor,
 def init_mlp(pb: ParamBuilder, cfg: ModelConfig, d_ff: Optional[int] = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "swiglu":
-        return {"w1": pb.param((d, f)), "w3": pb.param((d, f)),
-                "w2": pb.param((f, d))}
-    return {"w1": pb.param((d, f)), "w2": pb.param((f, d))}
+        return {"w1": pb.param((d, f), axes=("embed", "mlp")),
+                "w3": pb.param((d, f), axes=("embed", "mlp")),
+                "w2": pb.param((f, d), axes=("mlp", "embed"))}
+    return {"w1": pb.param((d, f), axes=("embed", "mlp")),
+            "w2": pb.param((f, d), axes=("mlp", "embed"))}
 
 
 def apply_mlp(p, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -346,8 +479,10 @@ def apply_mlp(p, x: Tensor, cfg: ModelConfig) -> Tensor:
 def init_moe(pb: ParamBuilder, cfg: ModelConfig):
     """The router (d, E) and E SwiGLU experts (``layers.py:325-333``)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": pb.param((d, e)), "w1": pb.param((e, d, f)),
-            "w3": pb.param((e, d, f)), "w2": pb.param((e, f, d))}
+    return {"router": pb.param((d, e), axes=("embed", "experts")),
+            "w1": pb.param((e, d, f), axes=("experts", "embed", "mlp")),
+            "w3": pb.param((e, d, f), axes=("experts", "embed", "mlp")),
+            "w2": pb.param((e, f, d), axes=("experts", "mlp", "embed"))}
 
 
 def moe_capacity(cfg: ModelConfig, group: int) -> int:
@@ -411,9 +546,24 @@ def apply_moe(p, x: Tensor, cfg: ModelConfig):
     model dtype on its way, as the reference's combine tensor does.
     Dispatch and combine index a flat (g * E * cap + 1, D) buffer whose
     last row takes the dropped choices and reads back as zero.
+
+    On DTensors this is :func:`_moe_expert_parallel`.
     """
+    if is_dtensor(x):
+        return _moe_expert_parallel(p, x, cfg)
+    y, aux = _moe_local(p, x, cfg, 0)
+    return y.to(x.dtype), aux
+
+
+def _moe_local(p, x: Tensor, cfg: ModelConfig, lo: int):
+    """:func:`apply_moe` on plain tensors whose ``w1``/``w3``/``w2`` hold
+    the experts ``lo .. lo + n`` of the ``router``'s E: every token is
+    routed over all E, and only the choices of those experts are
+    dispatched and combined.  Returns the float32 output (the sum of
+    those choices' terms) and the aux loss."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    ne = p["w1"].shape[0]
     nt = b * s
     grp = min(cfg.moe_group, nt)
     n_grp = -(-nt // grp)
@@ -423,27 +573,74 @@ def apply_moe(p, x: Tensor, cfg: ModelConfig):
     xt = xf.reshape(n_grp, grp, d)
     r = moe_route(p, xt, cfg)
     cap = r.cap
-    n_slots = n_grp * e * cap
-    grp_base = torch.arange(n_grp, device=x.device)[:, None, None] * e
-    dest = torch.where(r.keep, (grp_base + r.idx) * cap + r.slot, n_slots)
+    n_slots = n_grp * ne * cap
+    grp_base = torch.arange(n_grp, device=x.device)[:, None, None] * ne
+    keep = r.keep if ne == e else r.keep & (r.idx >= lo) & (r.idx < lo + ne)
+    dest = torch.where(keep, (grp_base + r.idx - lo) * cap + r.slot, n_slots)
     dest = dest.reshape(-1)                                    # (g*n*k,)
     xe = x.new_zeros((n_slots + 1, d))
     xe.index_copy_(0, dest, xt[:, :, None].expand(-1, -1, k, -1)
                    .reshape(-1, d))
-    xe = xe[:n_slots].view(n_grp, e, cap, d).transpose(0, 1)
-    xe = xe.reshape(e, n_grp * cap, d)
+    xe = xe[:n_slots].view(n_grp, ne, cap, d).transpose(0, 1)
+    xe = xe.reshape(ne, n_grp * cap, d)
     h = F.silu(torch.bmm(xe, p["w1"].to(x.dtype)).float())
     h = (h * torch.bmm(xe, p["w3"].to(x.dtype)).float()).to(x.dtype)
-    ye = torch.bmm(h, p["w2"].to(x.dtype))                     # (e, g*cap, d)
-    ye = ye.view(e, n_grp, cap, d).transpose(0, 1).reshape(n_slots, d)
+    ye = torch.bmm(h, p["w2"].to(x.dtype))                    # (ne, g*cap, d)
+    ye = ye.view(ne, n_grp, cap, d).transpose(0, 1).reshape(n_slots, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
     ddt = torch.bfloat16 if cfg.moe_dispatch_dtype == "bfloat16" \
         else torch.float32
-    wts = (r.gate * r.keep).to(ddt).to(x.dtype).float()        # (g,n,k)
+    wts = (r.gate * keep).to(ddt).to(x.dtype).float()         # (g,n,k)
     y = (wts[..., None] * ye[dest].view(n_grp, grp, k, d).float()).sum(2)
 
     # Switch-style load-balancing aux loss
     me = r.probs.mean(dim=1)                                   # (g,e)
     ce = r.sel.sum(2).float().mean(dim=1)                      # (g,e)
     aux = (me * ce).sum(-1).mean() * e
-    return y.reshape(n_grp * grp, d)[:nt].reshape(b, s, d).to(x.dtype), aux
+    return y.reshape(n_grp * grp, d)[:nt].reshape(b, s, d), aux
+
+
+def _moe_expert_parallel(p, x, cfg: ModelConfig):
+    """:func:`apply_moe` on DTensors, in the reference's layout: dispatch
+    groups over the batch axes, the experts split as the rules' logical
+    ``experts`` axis says where E divides it.
+
+    Each device routes its own tokens (the batch shard, whole over the
+    expert split) over all E experts, in dispatch groups of its own tokens
+    (the one-device groups where ``moe_group`` divides a shard's tokens),
+    runs the experts it holds on the choices routed to them and sums their
+    terms; the output is that partial sum over the expert split (reduced
+    at the caller's ``constrain``), the aux loss the mean over the batch
+    shards.  The
+    router and the expert weights are gathered to the devices that use
+    them (ZeRO-3) and the tokens to the batch layout;
+    :func:`sharding.redistribute` notes each such move."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (act_placements, from_local,
+                                                  keep_dims, shard_index,
+                                                  split_by, to_local)
+    mesh = x.device_mesh
+    pl = act_placements(("batch", "experts"), (x.shape[0], cfg.n_experts),
+                        mesh)
+    batch = keep_dims(pl, (0,))
+    ep = split_by(pl, 1)
+    wpl = tuple(Shard(0) if i in ep else Replicate()
+                for i in range(mesh.ndim))
+    y_pl = tuple(Partial() if i in ep else q for i, q in enumerate(batch))
+    xl = to_local(x, mesh, batch, "moe tokens", y_pl)
+    router = to_local(p["router"], mesh, (Replicate(),) * mesh.ndim,
+                      "moe router", y_pl)
+    w = {n: to_local(p[n], mesh, wpl, "moe experts", y_pl)
+         for n in ("w1", "w3", "w2")}
+    lo = shard_index(mesh, ep) * w["w1"].shape[0]
+    y, aux = _moe_local({"router": router, **w}, xl, cfg, lo)
+    # aux is the mean of the batch shards' losses, each computed alike on
+    # every device of the expert split: a sum of 1/n-th shares, so that
+    # each device's router gradient takes its share of the aux term
+    aux_pl = tuple(Replicate() if q.is_replicate() else Partial()
+                   for q in y_pl)
+    aux = aux / math.prod(mesh.size(i) for i, q in enumerate(aux_pl)
+                          if q.is_partial())
+    return (from_local(y.to(x.dtype), mesh, y_pl),
+            from_local(aux, mesh, aux_pl))

@@ -1,4 +1,4 @@
-"""Full-model assembly — the families the port runs so far.
+"""Full-model assembly for the 10 assigned architectures.
 
 The counterpart of ``repro/models/model.py``:
 
@@ -16,8 +16,10 @@ The counterpart of ``repro/models/model.py``:
 
 The reference's ``lax.scan`` over stacked layer parameters is a Python loop
 over lists of per-layer parameter dicts (a hybrid or VLM model's
-``groups`` is a list of lists); its sharding ``constrain`` is a no-op on
-one card and is dropped.  Its remat (``jax.checkpoint`` of each scanned
+``groups`` is a list of lists).  Activation sharding uses logical names
+through ``distributed.sharding.constrain`` at the reference's sites: a
+no-op on plain tensors and outside a mesh context, a redistribution of a
+DTensor inside one (the dry-run).  Its remat (``jax.checkpoint`` of each scanned
 body) is ``torch.utils.checkpoint`` around each layer body, applied when
 autograd records the forward (see :func:`_remat`).
 """
@@ -33,12 +35,17 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.sharding import (constrain, gather_params,
+                                              is_dtensor)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.nn import ParamBuilder
+from repro_torch.models.nn import ParamBuilder, axes_tree
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+
+#: the logical axes of the residual stream (B, S, D)
+_BSE = ("batch", "seq", "embed")
 
 
 #: the products that remat policy ``"dots"`` keeps (JAX's
@@ -122,11 +129,14 @@ def _init_mamba_layer(pb: ParamBuilder, cfg: ModelConfig) -> Params:
 
 
 def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
-                device: Device = None) -> Params:
-    """The parameter tree of ``cfg`` in ``cfg.dtype`` on ``device``.
+                device: Device = None, *, with_axes: bool = False):
+    """The parameter tree of ``cfg`` in ``cfg.dtype`` on ``device``, and
+    with ``with_axes`` also its tree of logical axes (``(params, axes)``,
+    see :func:`nn.axes_tree`).
 
     ``generator`` is a seed or a ``torch.Generator`` on ``device``'s type;
-    ``device=None`` is the card (raises without one).  ``layers`` (dense,
+    ``device=None`` is the card (raises without one); on ``"meta"`` the
+    tree is empty tensors and nothing is drawn.  ``layers`` (dense,
     moe, ssm) is a list of per-layer dicts; ``groups`` (hybrid) a list of
     ``n_layers // attn_every`` lists of ``attn_every`` Mamba layers, and
     ``shared`` the ONE attention/MLP block applied after every group.  A
@@ -138,17 +148,22 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     if cfg.family not in FAMILY_KEYS:
         raise ValueError(f"unknown family {cfg.family}")
     device = resolve_device(device)
-    if isinstance(generator, int):
+    if device.type == "meta":
+        generator = None
+    elif isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
     pb = ParamBuilder(generator, cfg.torch_dtype, device)
     p: Params = {
-        "embed": pb.param((cfg.vocab, cfg.d_model), scale=0.02),
+        "embed": pb.param((cfg.vocab, cfg.d_model), axes=("vocab", "embed"),
+                          scale=0.02),
         "final_norm": L.init_norm(pb, cfg),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = pb.param((cfg.d_model, cfg.vocab))
+        p["lm_head"] = pb.param((cfg.d_model, cfg.vocab),
+                                axes=("embed", "vocab"))
     if cfg.pos_emb == "learned":
-        p["pos"] = pb.param((cfg.max_seq, cfg.d_model), scale=0.02)
+        p["pos"] = pb.param((cfg.max_seq, cfg.d_model), axes=("seq", "embed"),
+                            scale=0.02)
     fam = cfg.family
     if fam in ("dense", "moe"):
         p["layers"] = [_init_dense_layer(pb, cfg)
@@ -168,13 +183,14 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
                        for _ in range(ng)]
         p["cross"] = [_init_cross_layer(pb, cfg) for _ in range(ng)]
     else:                                                   # encdec
-        p["enc_pos"] = pb.param((cfg.n_frames, cfg.d_model), scale=0.02)
+        p["enc_pos"] = pb.param((cfg.n_frames, cfg.d_model),
+                                axes=("seq", "embed"), scale=0.02)
         p["enc_layers"] = [_init_dense_layer(pb, cfg)
                            for _ in range(cfg.n_enc_layers)]
         p["enc_norm"] = L.init_norm(pb, cfg)
         p["dec_layers"] = [_init_dec_layer(pb, cfg)
                            for _ in range(cfg.n_layers)]
-    return p
+    return (p, axes_tree(p, pb.axes)) if with_axes else p
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -194,11 +210,12 @@ def n_groups(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _mamba_block(p, x: Tensor, cfg: ModelConfig, *, collect_state=False):
+    p = gather_params(p)
     h = L.apply_norm(p["norm"], x, cfg)
     if collect_state:
         y, st = S.apply_mamba(p["mamba"], h, cfg, return_state=True)
-        return x + y, st
-    return x + S.apply_mamba(p["mamba"], h, cfg), None
+        return constrain(x + y, _BSE), st
+    return constrain(x + S.apply_mamba(p["mamba"], h, cfg), _BSE), None
 
 
 def _dense_block(p, x: Tensor, cfg: ModelConfig, q_pos: Tensor):
@@ -206,18 +223,19 @@ def _dense_block(p, x: Tensor, cfg: ModelConfig, q_pos: Tensor):
     (``model.py:160-182``).  Returns the output, the MoE's aux loss (0.0
     without one) and the block's (K, V) (B, S, Kh, Dh), which prefill
     keeps."""
+    p = gather_params(p)
     hn = L.apply_norm(p["attn_norm"], x, cfg)
     q, k, v = L._qkv(p["attn"], hn, hn, cfg, q_pos, q_pos, True)
     o = L.attention_core(q, k, v, q_pos, q_pos, cfg, causal=True,
                          block_kv=cfg.attn_block_kv)
-    x = x + L.out_proj(o, p["attn"]["wo"])
+    x = constrain(x + L.out_proj(o, p["attn"]["wo"]), _BSE)
     h = L.apply_norm(p["mlp_norm"], x, cfg)
     aux = 0.0
     if "moe" in p:
         y, aux = L.apply_moe(p["moe"], h, cfg)
     else:
         y = L.apply_mlp(p["mlp"], h, cfg)
-    return x + y, aux, (k, v)
+    return constrain(x + y, _BSE), aux, (k, v)
 
 
 def _cross_attention(p, h: Tensor, mem: Tensor, cfg: ModelConfig,
@@ -232,12 +250,13 @@ def _cross_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
                  mem_pos: Tensor) -> Tensor:
     """A VLM's cross layer: gated cross-attention, then its MLP
     (``model.py:194-203``)."""
+    p = gather_params(p)
     h = L.apply_norm(p["attn_norm"], x, cfg)
     x = x + _cross_attention(p["attn"], h, mem, cfg, q_pos, mem_pos)
     if "mlp" in p:
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["mlp_norm"], x, cfg),
                             cfg)
-    return x
+    return constrain(x, _BSE)
 
 
 def _dec_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
@@ -252,6 +271,7 @@ def _dec_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
     there a model given a window prefills other K/V than its forward
     computes (ROADMAP.md, faults of the reference); without a window,
     whisper's own setting, the two are the same computation."""
+    p = gather_params(p)
     h = L.apply_norm(p["attn_norm"], x, cfg)
     q, k, v = L._qkv(p["attn"], h, h, cfg, q_pos, q_pos, False)
     o = L.attention_core(q, k, v, q_pos, q_pos, cfg, causal=True,
@@ -260,7 +280,7 @@ def _dec_block(p, x: Tensor, mem: Tensor, cfg: ModelConfig, q_pos: Tensor,
     h = L.apply_norm(p["cross_norm"], x, cfg)
     x = x + _cross_attention(p["cross"], h, mem, cfg, q_pos, mem_pos)
     h = L.apply_norm(p["mlp_norm"], x, cfg)
-    return x + L.apply_mlp(p["mlp"], h, cfg), (k, v)
+    return constrain(x + L.apply_mlp(p["mlp"], h, cfg), _BSE), (k, v)
 
 
 def _positions(b: int, s: int, device) -> Tensor:
@@ -271,10 +291,11 @@ def _positions(b: int, s: int, device) -> Tensor:
 def embed_tokens(p, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     """Token embeddings in the model dtype, plus the learned position
     table's first S rows where the config has one."""
+    p = gather_params({k: p[k] for k in ("embed", "pos") if k in p})
     x = F.embedding(tokens, p["embed"]).to(cfg.torch_dtype)
     if cfg.pos_emb == "learned":
         x = x + p["pos"][:tokens.shape[1]][None].to(x.dtype)
-    return x
+    return constrain(x, _BSE)
 
 
 def unembed(p, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -284,9 +305,12 @@ def unembed(p, cfg: ModelConfig, x: Tensor) -> Tensor:
     model dtype; here both operands are widened first, which gives the same
     exact products and float32 sums (a bf16 matmul would round the logits).
     """
+    p = gather_params({k: p[k] for k in ("final_norm", "embed", "lm_head")
+                       if k in p})
     x = L.apply_norm(p["final_norm"], x, cfg)
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return torch.matmul(x.float(), w.to(x.dtype).float())
+    return constrain(torch.matmul(x.float(), w.to(x.dtype).float()),
+                     ("batch", "seq", "vocab"))
 
 
 def _stack_kv(kvs) -> tuple:
@@ -379,22 +403,24 @@ def encode(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
     the learned ``enc_pos`` added, then bidirectional attention (no RoPE)
     and the MLP in each layer, then ``enc_norm`` (``model.py:347-367``)."""
     dt = cfg.torch_dtype
-    x = frames.to(dt) + params["enc_pos"][None].to(dt)
+    enc_pos = gather_params(params["enc_pos"])
+    x = constrain(frames.to(dt) + enc_pos[None].to(dt), _BSE)
     pos = _positions(x.shape[0], x.shape[1], x.device)
     enc_block = _remat(cfg, params)(_enc_block)
     for pl in params["enc_layers"]:
         x = enc_block(pl, x, cfg, pos)
-    return L.apply_norm(params["enc_norm"], x, cfg)
+    return L.apply_norm(gather_params(params["enc_norm"]), x, cfg)
 
 
 def _enc_block(p, x: Tensor, cfg: ModelConfig, pos: Tensor) -> Tensor:
     """A Whisper encoder layer: bidirectional attention without RoPE, then
     the MLP."""
+    p = gather_params(p)
     h = L.apply_norm(p["attn_norm"], x, cfg)
     x = x + L.attention(p["attn"], h, cfg, q_pos=pos, causal=False,
                         rope=False, block_kv=cfg.attn_block_kv)
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["mlp_norm"], x, cfg),
-                           cfg)
+    x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["mlp_norm"], x, cfg), cfg)
+    return constrain(x, _BSE)
 
 
 # ---------------------------------------------------------------------------
@@ -411,8 +437,48 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens: Tensor,
     rematerialised as ``cfg.remat`` / ``cfg.remat_policy`` say."""
     logits, aux, _ = forward(params, cfg, tokens[:, :-1], memory=memory)
     targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    if is_dtensor(logits):
+        nll = _nll_vocab_parallel(logits, targets)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = (logz - gold).mean()
     aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def _nll_vocab_parallel(logits, targets):
+    """:func:`lm_loss`'s mean NLL of DTensor logits (B, S, V): each device
+    works on its own rows and positions and, where the rules' logical
+    ``vocab`` axis splits V, its own vocabulary slice; the max, the sum of
+    exponentials and the gold logit are reduced over that split
+    (Megatron's vocab-parallel cross entropy).  DTensor's own
+    ``logsumexp`` and ``gather`` would gather the vocabulary, and the
+    gather's backward scatters into a replicated (B, S, V) zero tensor."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.distributed.sharding import (act_placements, from_local,
+                                                  keep_dims, shard_index,
+                                                  split_by, to_local)
+    mesh = logits.device_mesh
+    pl = act_placements(("batch", "seq", "vocab"), tuple(logits.shape), mesh)
+    rows = keep_dims(pl, (0, 1))
+    vdims = split_by(pl, 2)
+    lg = to_local(logits, mesh, pl, "loss logits")
+    tg = to_local(targets, mesh, rows, "loss targets")
+
+    def over_vocab(t, op):                 # reduce a local (b, s, 1)
+        if not vdims:
+            return t
+        red = tuple(Partial(op) if i in vdims else q
+                    for i, q in enumerate(rows))
+        return from_local(t, mesh, red).redistribute(mesh, rows).to_local()
+    lo = shard_index(mesh, vdims) * lg.shape[-1]
+    m = over_vocab(lg.detach().amax(-1, keepdim=True), "max")
+    logz = m + torch.log(over_vocab(torch.exp(lg - m).sum(-1, keepdim=True),
+                                    "sum"))
+    idx = (tg - lo)[..., None]
+    hit = (idx >= 0) & (idx < lg.shape[-1])
+    gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)) * hit
+    nll = logz - over_vocab(gold, "sum")                       # (b, s, 1)
+    return from_local(nll, mesh, rows).mean()

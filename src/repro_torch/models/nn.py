@@ -6,7 +6,17 @@ shapes, the same fan-in scale over the leading axis and the same zeros /
 ones inits.  ``torch.Generator`` and JAX's random keys give different numbers
 from the same seed, so weights that must match the reference are carried
 across with :func:`repro_torch.models.convert.params_from_numpy` instead.
-Logical-axis metadata waits for the sharding port.
+
+Every parameter carries the reference's tuple of *logical axis names*
+(``"embed"``, ``"q_heads"``, ``"mlp"``, ...), recorded by the builder and
+laid out as a tree of the parameters' structure by :func:`axes_tree`;
+``repro_torch.distributed.sharding`` maps the names onto mesh axes.  The
+port keeps per-layer lists where the reference stacks layers, so a leaf's
+axes are the reference's without its stacked ``"layers"`` dims.
+
+On the meta device the builder makes empty tensors and draws nothing, so
+a full-size tree costs no memory and no time (the reference's
+``jax.eval_shape``).
 """
 from __future__ import annotations
 
@@ -16,24 +26,43 @@ import numpy as np
 import torch
 
 Params = Dict[str, Any]
+Axes = Tuple[Optional[str], ...]
 
 
 class ParamBuilder:
-    """Creates parameters of one dtype on one device from one generator."""
+    """Creates parameters of one dtype on one device from one generator
+    (``None`` on the meta device, which draws nothing) and records each
+    one's logical axes in ``axes``, keyed by the tensor's ``id``."""
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
-                 device: torch.device):
-        if generator.device.type != device.type:
-            raise ValueError(f"generator on {generator.device} cannot draw "
-                             f"parameters for {device}")
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype: torch.dtype, device: torch.device):
+        device = torch.device(device)
+        if device.type != "meta" and (generator is None or
+                                      generator.device.type != device.type):
+            raise ValueError(f"generator on "
+                             f"{getattr(generator, 'device', None)} cannot "
+                             f"draw parameters for {device}")
         self.generator = generator
         self.dtype = dtype
         self.device = device
+        self.axes: Dict[int, Axes] = {}
 
-    def param(self, shape: Tuple[int, ...], init: str = "normal",
+    def param(self, shape: Tuple[int, ...], axes: Axes = None,
+              init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
-        """A (shape) parameter: ``"zeros"``, ``"ones"`` or ``"normal"``
-        draws scaled by ``scale`` (default 1/sqrt(fan-in))."""
+        """A (shape) parameter with logical ``axes`` (one name or None per
+        dim): ``"zeros"``, ``"ones"`` or ``"normal"`` draws scaled by
+        ``scale`` (default 1/sqrt(fan-in))."""
+        if axes is None or len(axes) != len(shape):
+            raise ValueError(f"axes {axes} vs shape {shape}")
+        t = self._make(tuple(shape), init, scale)
+        self.axes[id(t)] = tuple(axes)
+        return t
+
+    def _make(self, shape: Tuple[int, ...], init: str,
+              scale: Optional[float]) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         if init == "ones":
@@ -44,6 +73,19 @@ class ParamBuilder:
         w = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
         return (w * scale).to(self.dtype)
+
+
+def axes_tree(params: Params, axes: Dict[int, Axes]) -> Params:
+    """A tree of ``params``' structure holding each leaf's axes tuple, as
+    a :class:`ParamBuilder` recorded them (``nn.py:72-95``)."""
+    def leaf_axes(t: torch.Tensor) -> Axes:
+        ax = axes.get(id(t))
+        if ax is None:
+            raise KeyError(f"no axes recorded for a {tuple(t.shape)} leaf")
+        if len(ax) != t.dim():
+            raise ValueError(f"rank {t.dim()} vs axes {ax}")
+        return ax
+    return tree_map(leaf_axes, params)
 
 
 def tree_leaves(tree: Any) -> list:

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.conv1d.ops import conv1d_causal
 from repro_torch.kernels.conv1d.ref import conv1d_causal_ref
 from repro_torch.models.nn import ParamBuilder
@@ -34,14 +35,14 @@ def init_mamba(pb: ParamBuilder, cfg: ModelConfig):
     h, n = cfg.ssm_heads, cfg.ssm_state
     conv_ch = di + 2 * n                   # x, B, C share the conv
     return {
-        "in_proj": pb.param((d, 2 * di + 2 * n + h)),
-        "conv_w": pb.param((cfg.conv_width, conv_ch)),
-        "conv_b": pb.param((conv_ch,), init="zeros"),
-        "a_log": pb.param((h,), init="zeros"),
-        "dt_bias": pb.param((h,), init="zeros"),
-        "D": pb.param((h,), init="ones"),
-        "norm": pb.param((di,), init="ones"),
-        "out_proj": pb.param((di, d)),
+        "in_proj": pb.param((d, 2 * di + 2 * n + h), axes=("embed", "mlp")),
+        "conv_w": pb.param((cfg.conv_width, conv_ch), axes=("conv", "mlp")),
+        "conv_b": pb.param((conv_ch,), axes=("mlp",), init="zeros"),
+        "a_log": pb.param((h,), axes=("heads",), init="zeros"),
+        "dt_bias": pb.param((h,), axes=("heads",), init="zeros"),
+        "D": pb.param((h,), axes=("heads",), init="ones"),
+        "norm": pb.param((di,), axes=("mlp",), init="ones"),
+        "out_proj": pb.param((di, d), axes=("mlp", "embed")),
     }
 
 
@@ -56,11 +57,26 @@ def _split(cfg: ModelConfig, proj: Tensor):
 
 def _conv(p, xbc: Tensor, cfg: ModelConfig) -> Tensor:
     w = p["conv_w"].to(xbc.dtype)
-    if cfg.use_kernels:
-        y = conv1d_causal(xbc, w)
-    else:
-        y = conv1d_causal_ref(xbc, w)
+    conv = conv1d_causal if cfg.use_kernels else conv1d_causal_ref
+    y = _conv_shards(conv, xbc, w) if is_dtensor(xbc) else conv(xbc, w)
     return F.silu(y + p["conv_b"].to(xbc.dtype))
+
+
+def _conv_shards(conv, x, w):
+    """``conv(x, w)`` of a DTensor x (B, T, ch) shard by shard: T whole,
+    each device's channels with their taps (torch 2.11 cannot plan the
+    redistribution of the conv's padding)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import from_local, to_local
+    mesh = x.device_mesh
+    xpl = tuple(p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+                for p in x.placements)
+    wpl = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
+                else Replicate() for p in xpl)
+    y = conv(to_local(x, mesh, xpl, "conv input", xpl),
+             to_local(w, mesh, wpl, "conv taps", xpl))
+    return from_local(y, mesh, xpl)
 
 
 def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float) -> Tensor:
@@ -82,6 +98,8 @@ def ssd_chunked(x: Tensor, dt: Tensor, a_log: Tensor, B: Tensor, C: Tensor,
     neither decay nor feed the state: the returned final_state is exact,
     which the prefill -> decode handoff relies on.
     """
+    if is_dtensor(x):
+        return _ssd_shards(x, dt, a_log, B, C, D, chunk)
     b, t, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, t)
@@ -130,6 +148,34 @@ def ssd_chunked(x: Tensor, dt: Tensor, a_log: Tensor, B: Tensor, C: Tensor,
     return y, state
 
 
+def _ssd_shards(x, dt, a_log, B, C, D, chunk: int):
+    """:func:`ssd_chunked` on DTensors, shard by shard: the scan is
+    independent per batch row and per head, so each device scans its own
+    rows and, where the rules split d_inner (logical ``mlp``, of which the
+    heads are groups), its own heads (DTensor would replicate the chunk
+    tensors, and in torch 2.11 has no rule for the ``flip`` in
+    ``cumsum``'s backward)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import (act_placements, from_local,
+                                                  keep_dims, split_by,
+                                                  to_local)
+    mesh = x.device_mesh
+    xpl = act_placements(("batch", None, "mlp"), tuple(x.shape[:3]), mesh)
+    rows = keep_dims(xpl, (0,))
+    hd = split_by(xpl, 2)
+    per_head = tuple(Shard(0) if i in hd else Replicate()
+                     for i in range(mesh.ndim))
+    state_pl = tuple(Shard(1) if i in hd else q for i, q in enumerate(rows))
+    y, state = ssd_chunked(to_local(x, mesh, xpl, "ssd x", xpl),
+                           to_local(dt, mesh, xpl, "ssd dt", xpl),
+                           to_local(a_log, mesh, per_head, "ssd a", xpl),
+                           to_local(B, mesh, rows, "ssd B", xpl),
+                           to_local(C, mesh, rows, "ssd C", xpl),
+                           to_local(D, mesh, per_head, "ssd D", xpl), chunk)
+    return from_local(y, mesh, xpl), from_local(state, mesh, state_pl)
+
+
 def apply_mamba(p, x: Tensor, cfg: ModelConfig, return_state: bool = False):
     """Training/prefill forward. x (B,T,D) -> (B,T,D) [, decode state]."""
     di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
@@ -150,7 +196,9 @@ def apply_mamba(p, x: Tensor, cfg: ModelConfig, return_state: bool = False):
     # conv rolling buffer = last (K-1) *raw* conv inputs, left-zero padded
     kb = cfg.conv_width - 1
     t = xbc_raw.shape[1]
-    buf = F.pad(xbc_raw, (0, 0, max(0, kb - t), 0))[:, -kb:]
+    # a copy: a view would keep the whole input projection alive
+    buf = xbc_raw[:, -kb:].clone() if t >= kb else \
+        F.pad(xbc_raw, (0, 0, kb - t, 0))
     return out, {"ssm": final, "conv": buf}
 
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.model import n_groups
 
 Cache = Dict[str, Any]
@@ -90,11 +91,32 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # prefill -> cache construction, and the decode write
 # ---------------------------------------------------------------------------
 
+def _whole(x, dim: int) -> tuple:
+    """DTensor ``x``'s placements with dim ``dim`` whole (replicated where
+    it was split)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                 for p in x.placements)
+
+
+def _shardwise(fn, x, dim: int, *args):
+    """``fn(x, *args)`` for a DTensor ``x`` whose dim ``dim`` ``fn`` needs
+    whole: run on this device's shard, the result placed as the shard
+    was.  DTensor has no rule for ``index_copy`` in torch 2.11, and
+    mis-plans ``pad`` there."""
+    from repro_torch.distributed.sharding import from_local, to_local
+    mesh, pl = x.device_mesh, _whole(x, dim)
+    return from_local(fn(to_local(x, mesh, pl, "cache layout"), *args),
+                      mesh, pl)
+
+
 def ring_pack(k_full: Tensor, ring: int) -> Tensor:
     """(N, B, S, ...) full-sequence K/V -> (N, B, ring, ...) ring buffer.
 
     Keeps the last ``ring`` positions, each at slot p % ring.
     """
+    if is_dtensor(k_full):
+        return _shardwise(ring_pack, k_full, 2, ring)
     s = k_full.shape[2]
     if s <= ring:
         return F.pad(k_full, (0, 0) * (k_full.dim() - 3) + (0, ring - s))
@@ -112,8 +134,23 @@ def ring_positions(s: int, ring: int, device: Device = None) -> Tensor:
     return torch.roll(pos, (s - ring) % ring)
 
 
+def index_copy(t: Tensor, dim: int, index: Tensor, src: Tensor) -> Tensor:
+    """``t.index_copy(dim, index, src)``; on a DTensor ``t``, shard by
+    shard: ``src`` laid out as ``t``, ``index`` the same on every device,
+    ``dim`` whole."""
+    if not is_dtensor(t):
+        return t.index_copy(dim, index, src)
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import to_local
+    mesh = t.device_mesh
+    idx = to_local(index, mesh, (Replicate(),) * mesh.ndim, "cache index")
+    local = to_local(src, mesh, _whole(t, dim), "cache write")
+    return _shardwise(lambda x: x.index_copy(dim, idx, local), t, dim)
+
+
 def write_token(kc: Tensor, k_new: Tensor, slot: Tensor) -> Tensor:
     """A copy of ``kc`` (B, ring, ...) with one token's K/V ``k_new``
     (B, 1, ...) at ``slot`` (an integer tensor of one element, on the
     cache's device: no host sync).  ``kc`` is left as it was."""
-    return kc.index_copy(1, slot.reshape(1).long(), k_new.to(kc.dtype))
+    return index_copy(kc, 1, slot.reshape(1).long(), k_new.to(kc.dtype))

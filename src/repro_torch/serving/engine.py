@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, gather_params
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
@@ -35,6 +36,7 @@ def _embed_one(p, cfg: ModelConfig, token: Tensor, pos: Tensor) -> Tensor:
     """(B, 1) tokens at position ``pos`` -> (B, 1, D); a learned position
     table's row ``min(pos, max_seq - 1)``, read on the device
     (``engine.py:32-39``)."""
+    p = gather_params({k: p[k] for k in ("embed", "pos") if k in p})
     x = F.embedding(token, p["embed"]).to(cfg.torch_dtype)
     if cfg.pos_emb == "learned":
         row = torch.clamp(pos, max=cfg.max_seq - 1).reshape(1).long()
@@ -47,6 +49,7 @@ def _attn_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor, vc: Tensor,
                  rope: bool = True):
     """One-token self-attention against a ring cache.  Returns (y, kc, vc),
     the caches new tensors with the token written at ``slot``."""
+    pl = gather_params({k: pl[k] for k in ("attn_norm", "attn")})
     b = x.shape[0]
     h = L.apply_norm(pl["attn_norm"], x, cfg)
     qp = pos.reshape(1, 1).expand(b, 1)
@@ -60,6 +63,8 @@ def _attn_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor, vc: Tensor,
 
 def _ffn_decode(pl, x: Tensor, cfg: ModelConfig) -> Tensor:
     """The MLP or MoE of one token (``engine.py:55-61``)."""
+    pl = gather_params({k: pl[k] for k in ("mlp_norm", "mlp", "moe")
+                        if k in pl})
     h = L.apply_norm(pl["mlp_norm"], x, cfg)
     if "moe" in pl:
         y, _ = L.apply_moe(pl["moe"], h, cfg)
@@ -74,8 +79,9 @@ def _cross_attn_decode(pa, h: Tensor, cfg: ModelConfig, kc: Tensor,
     every slot valid, no causal mask; tanh-gated when ``pa`` has a
     ``gate``.  ``q_norm``: the query takes the qk-norm where the config
     has one (the VLM's path does, the enc-dec's does not)."""
+    pa = gather_params(pa)
     b, t = h.shape[0], kc.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", h, pa["wq"].to(h.dtype))
+    q = L.project("bsd,dhk->bshk", h, pa["wq"].to(h.dtype))
     if q_norm and cfg.qk_norm:
         q = L.rms_head_norm(pa["q_norm"], q, cfg.norm_eps)
     qp = torch.zeros((b, 1), dtype=torch.int32, device=h.device)
@@ -90,6 +96,7 @@ def _cross_attn_decode(pa, h: Tensor, cfg: ModelConfig, kc: Tensor,
 def _cross_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor,
                   vc: Tensor) -> Tensor:
     """A VLM cross layer for one token (``engine.py:64-81``)."""
+    pl = gather_params(pl)
     h = L.apply_norm(pl["attn_norm"], x, cfg)
     x = x + _cross_attn_decode(pl["attn"], h, cfg, kc, vc)
     if "mlp" in pl:
@@ -99,6 +106,7 @@ def _cross_decode(pl, x: Tensor, cfg: ModelConfig, kc: Tensor,
 
 
 def _mamba_decode(pl, x: Tensor, st, cfg: ModelConfig):
+    pl = gather_params(pl)
     h = L.apply_norm(pl["norm"], x, cfg)
     y, st = S.apply_mamba_decode(pl["mamba"], h, st, cfg)
     return x + y, st
@@ -129,7 +137,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     A VLM or enc-dec cache's ``cross`` K/V is read, not written.
     """
     pos = cache["pos"]
-    x = _embed_one(params, cfg, token, pos)                      # (B,1,D)
+    x = constrain(_embed_one(params, cfg, token, pos),
+                  ("batch", None, "embed"))                    # (B,1,D)
     fam = cfg.family
     new = dict(cache)
     states = None
@@ -137,7 +146,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
         x, states = _mamba_layers(params["layers"], x, cache, 0, cfg)
     else:
         slot = torch.remainder(pos, cache["kv_pos"].shape[0]).reshape(1)
-        kv_pos = cache["kv_pos"].index_copy(0, slot.long(), pos.reshape(1))
+        kv_pos = C.index_copy(cache["kv_pos"], 0, slot.long(), pos.reshape(1))
         new["kv_pos"] = kv_pos
         ks, vs = [], []
 
@@ -150,7 +159,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
         if fam in ("dense", "moe"):                      # engine.py:111-119
             for i, pl in enumerate(params["layers"]):
                 x = self_attn(pl, x, i, cache["k"], cache["v"])
-                x = _ffn_decode(pl, x, cfg)
+                x = constrain(_ffn_decode(pl, x, cfg),
+                              ("batch", None, "embed"))
         elif fam == "vlm":                               # engine.py:157-181
             every, cross = cfg.cross_attn_every, cache["cross"]
             for g, (cp, gp) in enumerate(zip(params["cross"],
@@ -196,10 +206,12 @@ def _cross_kv(attn_ps, mem: Tensor, cfg: ModelConfig) -> Dict[str, Tensor]:
     attention parameter dicts ``attn_ps`` (one per cross layer):
     ``{"k", "v"}`` (N, B, T, Kh, Dh), one batched product over the stacked
     weights (``engine.py:218-227``)."""
+    attn_ps = [gather_params({k: pa[k] for k in ("wk", "wv", "k_norm")
+                              if k in pa}) for pa in attn_ps]
     out = {}
     for name in ("k", "v"):
         w = torch.stack([pa[f"w{name}"] for pa in attn_ps]).to(mem.dtype)
-        out[name] = torch.einsum("btd,ndhk->nbthk", mem, w)
+        out[name] = L.project("btd,ndhk->nbthk", mem, w)
     if cfg.qk_norm:
         scale = torch.stack([pa["k_norm"] for pa in attn_ps])
         out["k"] = L.rms_head_norm(scale[:, None, None, None], out["k"],

@@ -16,7 +16,9 @@ A crash mid-write leaves only a .tmp dir, which :func:`latest_step` and
 NumPy has no bfloat16 (and the card's machine has no ``ml_dtypes``), so a
 bfloat16 leaf is stored as its bits, ``uint16``, with ``"bfloat16"`` in the
 manifest, and restored bit for bit.  :func:`restore` places every leaf on
-one target ``device`` where the reference takes shardings.
+one target ``device``, or, given ``shardings``, lays each out on its mesh
+as a DTensor: the elastic path, where a checkpoint saved under one layout
+is restored under another.
 """
 from __future__ import annotations
 
@@ -139,23 +141,36 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, skeleton: Any, step: Optional[int] = None,
-            device: Device = None) -> Tuple[Any, Dict]:
+            device: Device = None, shardings: Optional[Any] = None
+            ) -> Tuple[Any, Dict]:
     """Load a checkpoint (the newest when ``step`` is None) into
     ``skeleton``'s structure, every leaf a tensor on ``device`` (``None``:
-    the card).  Returns ``(tree, extra)``."""
+    the card).  ``shardings``: a tree of the skeleton's structure whose
+    leaves are ``distributed.sharding.NamedSharding`` s — each leaf is then
+    a DTensor laid out so on its mesh (on the mesh's device type), this
+    rank keeping its own shard of the full array every rank reads.
+    Returns ``(tree, extra)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    device = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, MANIFEST)) as f:
         meta = json.load(f)
+    flat_sh = _flatten(shardings) if shardings is not None else None
+    if flat_sh is None:
+        device = resolve_device(device)
     flat = {}
     for path in _flatten(skeleton):
         info = meta["leaves"][path]
         arr = np.load(os.path.join(d, info["file"]))
-        flat[path] = _from_numpy(arr, info["dtype"], device)
+        if flat_sh is None:
+            flat[path] = _from_numpy(arr, info["dtype"], device)
+            continue
+        from repro_torch.distributed.sharding import distribute
+        sh = flat_sh[path]
+        dev = resolve_device(sh.mesh.device_type)
+        flat[path] = distribute(_from_numpy(arr, info["dtype"], dev), sh)
     return _unflatten(flat, skeleton), meta["extra"]
 
 

@@ -4,8 +4,8 @@ The counterpart of ``repro/training/data.py``: ``batch(step)`` is a pure
 function of (seed, step), so a restarted job resumes mid-epoch with no
 data-loader state in its checkpoint.  :func:`global_batch` is the
 reference's NumPy generator, copied, so both packages see byte-identical
-batches.  On one card there is one shard: :func:`device_batch` takes the
-place of the reference's ``sharded_batch``.
+batches.  :func:`device_batch` puts the whole batch on one device;
+:func:`sharded_batch` makes it a DTensor split over a mesh's batch axes.
 
 The generator is a mixture of Zipfian unigrams and short repeated n-grams,
 a learnable next-token distribution.
@@ -56,6 +56,22 @@ def device_batch(dc: DataConfig, step: int,
     (``None``: the card)."""
     return torch.from_numpy(global_batch(dc, step)).to(
         resolve_device(device))
+
+
+def sharded_batch(dc: DataConfig, step: int, mesh):
+    """``global_batch(dc, step)`` as a DTensor on ``mesh`` (a DeviceMesh),
+    its rows split over the batch axes of the active sharding rules
+    (``pod``, ``data`` by default) when they divide the batch, replicated
+    otherwise (``data.py:51-66``).
+    Every rank draws the same global batch from the seed and keeps its own
+    rows, so nothing is sent, and any mesh sees the same batch."""
+    from repro_torch.distributed.sharding import (NamedSharding, distribute,
+                                                  rules_for, spec_for)
+    spec = spec_for(("batch",), (dc.global_batch,), rules_for(mesh).acts,
+                    mesh)
+    full = torch.from_numpy(global_batch(dc, step)).to(
+        resolve_device(mesh.device_type))
+    return distribute(full, NamedSharding(mesh, spec))
 
 
 def batch_iterator(dc: DataConfig, device: Device = None,

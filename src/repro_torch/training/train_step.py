@@ -56,13 +56,26 @@ def init_state(cfg: ModelConfig, generator=0,
     return TrainState(params=params, opt=O.init(params))
 
 
+def _chunk(x: torch.Tensor, n: int) -> list:
+    """``x.chunk(n)`` along the batch; a DTensor split over the batch is
+    chunked shard by shard (each device's microbatch is a slice of its
+    own rows, which moves nothing)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed.sharding import from_local
+    if not (isinstance(x, DTensor) and Shard(0) in x.placements):
+        return list(x.chunk(n))
+    return [from_local(c, x.device_mesh, x.placements)
+            for c in x.to_local().chunk(n)]
+
+
 def _microbatch(tokens: torch.Tensor, n: int, memory):
     """(B, S) -> n microbatches of (B/n, S) (and of the memory)."""
     b = tokens.shape[0]
     if b % n:
         raise ValueError(f"global batch {b} % microbatches {n} != 0")
-    mem = [None] * n if memory is None else memory.chunk(n)
-    return list(zip(tokens.chunk(n), mem))
+    mem = [None] * n if memory is None else _chunk(memory, n)
+    return list(zip(_chunk(tokens, n), mem))
 
 
 def _one(cfg: ModelConfig, tc: TrainConfig, params, tokens, memory):
