@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each kernel against its plain torch version on the card, and drives
-fourteen paths, each with the launch counters set to 0 just before it and
-read just after:
+fifteen paths and the five examples, each with the launch counters set to
+0 just before it and read just after:
 
 * the stencil engine (``StencilEngine`` with the ``cuda_sptc``,
   ``cuda_gemm`` and ``cuda_direct`` backends) over the whole paper suite at
@@ -43,7 +43,10 @@ read just after:
 * serving the dense ``qwen3-1.7b`` (28 layers, 1,720,574,976 parameters)
   and the MoE ``granite-moe-3b-a800m`` (32 layers, 40 experts top-8,
   3,298,793,472 parameters) the same way, at full width and depth in
-  bf16; before each, its 2-layer cut at full width in float32 holds
+  bf16 (Qwen3 also served a second time with its parameters as DTensors
+  on the one-rank ``nccl`` host mesh, ``GenerateDriver`` inside
+  ``use_mesh_rules``: the plain run's tokens, decode ms, idle share);
+  before each, its 2-layer cut at full width in float32 holds
   prefill-then-decode against forward through a full and a wrapped ring
   (the MoE's cut drop-free); the profile splits out the attention core's
   and the MoE's device time, and the MoE's prefill reports the share of
@@ -63,9 +66,11 @@ read just after:
   memory) must move its logits; the profile splits out the
   cross-attention's and the encoder's device time;
 * training ``qwen3-1.7b`` at full size (1,720,574,976 parameters, bf16,
-  remat ``full``) through ``repro_torch.launch.train.main``: 8 steps of 8 x
-  512 tokens in 2 microbatches, the losses finite and falling, step time,
-  tokens/s, peak memory and a profiled step; then kill-and-resume of its
+  remat ``full``) through ``repro_torch.launch.train.main`` over the host
+  mesh (one rank on ``nccl``, the state DTensors): 8 steps of 8 x 512
+  tokens in 2 microbatches, the losses finite and falling, step time,
+  tokens/s, peak memory and a profiled step with its NCCL kernels
+  counted; then kill-and-resume of its
   bf16 smoke config through the launcher's checkpoints, bit for bit under
   deterministic algorithms, and every arch's smoke config trained 2 steps
   on the card against the CPU (Mamba2 and Zamba2 with ``use_kernels`` on
@@ -76,13 +81,22 @@ read just after:
   its check on this card — Qwen3-1.7B's phase-train cell traced on a
   (1, 1) mesh must predict the argument bytes and FLOPs of one real step
   on the card exactly and its peak within 25 % of phase train's
-  ``max_memory_allocated``.
+  ``max_memory_allocated``;
+* the examples, ``examples/{quickstart,heat_diffusion_2d,serve_stencils,
+  serve_batched,train_lm}_torch.py``, each through its ``main`` at its own
+  size (``train_lm`` 50 steps): quickstart's backends and heat diffusion's
+  seven paths against ``direct`` (GStencil/s), every served stencil job
+  against ``direct`` (jobs/s), Mamba2 served through the conv kernel and
+  against ``use_kernels=False``, and training over the host mesh.
 
 Phase vet also plants one retake: the first trace of one full-size audit
 loses its markers, and the audit's launches must count the retaken call.
 Every profile is the launch audit's trace (``vet.lowering.trace_device``:
-spins at its head, a trace that lost them retaken), and holds the kernels
-it records to the wrappers' launch counters.
+spins at its head and one at its tail, a trace that lost either end or a
+counted kernel retaken), and holds the kernels it records to the
+wrappers' launch counters.  The trace check after training runs with no
+process group alive and reports any audit trace that lost device ops: the
+ops by name and place, and which of its ends it kept.
 
 The dense, MoE, enc-dec and VLM families reach no Pallas kernel in the
 reference, so their five phases launch no kernel of the port, and each
@@ -835,6 +849,10 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
                       f"{100 * ms / pr['wall_ms']:.2f}% of the wall | card "
                       f"{smi}")
     out["profile"] = {"prefill": prof, "decode_step": dec}
+    if phase == "lm-dense":
+        out["under_rules"] = _serve_under_rules(
+            params, cfg, prompts, toks_out, batch0, cache_len, decode_ms,
+            tag, smi)
     out.update({"params": n_params, "serve_wall_s": wall, "batches": batches,
                 "conv1d_launches": launches, "metrics": stats,
                 "prefill_ms": prefill_ms,
@@ -844,6 +862,86 @@ def _phase_lm(dev, smi: str, arch: str, phase: str, cut: int) -> dict:
     del params, cc, driver, mem0
     torch.cuda.empty_cache()
     print(f"phase {phase}: {out['seconds']:.1f} s")
+    return out
+
+
+def _serve_under_rules(params, cfg, prompts, want, batch0, cache_len: int,
+                       plain_decode_ms: float, tag: str, smi: str) -> dict:
+    """The model served again through ``GenerateDriver`` with its
+    parameters as DTensors on the one-rank host mesh (``nccl``), laid out
+    by ``param_shardings`` and served inside ``use_mesh_rules``, as a
+    caller of the reference serves under a mesh: the tokens must equal the
+    plain run's ``want``.  Then a decode step at batch ``MAX_BATCH`` under
+    the rules, timed (host clock, synced) and profiled (idle share).  The
+    group is released at the end."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch.train import host_rules
+    from repro_torch.models import model as M
+    from repro_torch.models.nn import tree_map
+    from repro_torch.serving import BatchPolicy, GenerateDriver
+    from repro_torch.serving import engine as E
+
+    mesh = MS.make_host_mesh(params["embed"].device)
+    try:
+        rules = host_rules()
+        _, axes = M.init_params(cfg, device="meta", with_axes=True)
+        dp = tree_map(SH.distribute, params,
+                      SH.param_shardings(axes, params, rules, mesh))
+        with SH.use_mesh_rules(mesh, rules):
+            driver = GenerateDriver(dp, cfg, cache_len=cache_len,
+                                    autostart=False, policy=BatchPolicy(
+                                        max_batch=MAX_BATCH, max_wait_ms=5.0))
+            t0 = time.perf_counter()
+            futs = [driver.submit(p, NEW_TOKENS) for p in prompts]
+            driver.start()
+            got = [f.result() for f in futs]
+            wall = time.perf_counter() - t0
+            driver.close()
+            same = sum(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+            with implicit_replication():
+                b0 = driver._place(batch0)
+                logits, cc = E.prefill(dp, cfg, b0, cache_len)
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+                del logits
+                E.decode_step(dp, cfg, cc, tok)               # warm-up
+                steps = 16
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    lg, cc = E.decode_step(dp, cfg, cc, tok)
+                    tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+                torch.cuda.synchronize()
+                decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+                dec = _profile(lambda: E.decode_step(dp, cfg, cc, tok),
+                               f"{cfg.name} decode step at batch {MAX_BATCH}"
+                               f" under the mesh rules", smi)
+        dec.pop("rows")
+        backend = str(dist.get_backend())
+    finally:
+        MS.release()
+    if dist.is_initialized():
+        raise AssertionError("the serving check left a process group alive")
+    idle = max(0.0, 1 - dec["device_ms"] / dec["wall_ms"])
+    out = {"mesh": [list(mesh.shape), backend], "equal_requests": same,
+           "requests": len(want), "serve_wall_s": wall,
+           "decode_ms_per_step": decode_ms,
+           "plain_decode_ms_per_step": plain_decode_ms,
+           "decode_idle_share": idle, "profile_decode_step": dec}
+    print(f"{tag} under the mesh rules (params as DTensors on the host mesh "
+          f"{tuple(mesh.shape)}, {backend}, GenerateDriver inside "
+          f"use_mesh_rules): served {len(want)} requests in {wall:.2f} s, "
+          f"tokens equal the plain run for {same} of {len(want)}; decode "
+          f"step at batch {MAX_BATCH} {decode_ms:.2f} ms (plain "
+          f"{plain_decode_ms:.2f} ms), profiled: device busy "
+          f"{dec['device_ms']:.2f} ms of wall {dec['wall_ms']:.2f} ms, idle "
+          f"share {100 * idle:.1f}% | card {smi}")
+    if same != len(want):
+        raise AssertionError(f"served under the mesh rules: {same} of "
+                             f"{len(want)} requests equal the plain run")
     return out
 
 
@@ -1024,18 +1122,17 @@ def _train_regions():
 
 def _phase_train(dev, smi: str) -> dict:
     """Train Qwen3-1.7B at full size through ``launch.train.main``
-    (``TRAIN_ARGV``): the parameter count, finite losses, the last below the
-    first, no conv launch; the median step over steps 2-8, tokens/s, peak
-    memory; then one more step profiled, split into the forward pass, the
-    attention cores, the unembed, the optimizer and remat's recompute."""
-    import importlib
-
+    (``TRAIN_ARGV``) over the host mesh, one rank on ``nccl`` (the phase
+    makes the group, so the state stays DTensors for the profiled step, and
+    releases it at the end): the parameter count, DTensor leaves, finite
+    losses, the last below the first, no conv launch; the median step over
+    steps 2-8, tokens/s, peak memory; then one more step through the
+    launcher's mesh step, profiled, split into the forward pass, the
+    attention cores, the unembed, the optimizer and remat's recompute, and
+    its NCCL kernels counted."""
     import torch
-    from repro_torch.kernels.conv1d import ops as conv_ops
-    from repro_torch.launch import train as TL
-    from repro_torch.models.nn import count_params
-    from repro_torch.training import data
-    T = importlib.import_module("repro_torch.training.train_step")
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as MS
 
     t_phase = time.perf_counter()
     steps: list = []
@@ -1043,6 +1140,25 @@ def _phase_train(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    mesh = MS.make_host_mesh(dev)
+    try:
+        out = _train_on_mesh(smi, mesh, steps, t_phase, held)
+    finally:
+        MS.release()
+    if dist.is_initialized():
+        raise AssertionError("phase train left a process group alive")
+    return out
+
+
+def _train_on_mesh(smi: str, mesh, steps: list, t_phase: float,
+                   held: int) -> dict:
+    """Phase train's body, on the host ``mesh`` the phase made."""
+    import torch
+    from repro_torch.distributed.sharding import is_dtensor, use_mesh_rules
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.launch import train as TL
+    from repro_torch.models.nn import count_params, tree_leaves
+    from repro_torch.training import data
     conv_ops.conv1d_causal.launches = 0
     state = TL.main(list(TRAIN_ARGV),
                     on_metrics=lambda s, m, sec: steps.append(
@@ -1056,6 +1172,10 @@ def _phase_train(dev, smi: str) -> dict:
     if n_params != N_PARAMS[DENSE_ARCH]:
         raise AssertionError(f"{n_params:,} parameters, want "
                              f"{N_PARAMS[DENSE_ARCH]:,}")
+    leaves = tree_leaves(state.tree())
+    if not all(is_dtensor(t) and t.device_mesh == mesh for t in leaves):
+        raise AssertionError("the trained state is not DTensors on the host "
+                             "mesh")
     if [s for s, *_ in steps] != list(range(args.steps)) or \
             not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}")
@@ -1072,11 +1192,16 @@ def _phase_train(dev, smi: str) -> dict:
            "step_s": [sec for *_, sec in steps],
            "median_step_ms_2_8": step_ms, "tokens_per_s": tokens / step_ms
            * 1e3, "peak_memory_gb": peak / 1e9,
-           "held_before_gb": held / 1e9, "conv1d_launches": launches}
+           "held_before_gb": held / 1e9, "conv1d_launches": launches,
+           "mesh": {"shape": list(mesh.shape),
+                    "backend": str(torch.distributed.get_backend()),
+                    "dtensor_leaves": len(leaves)}}
     print(f"phase train {DENSE_ARCH}: {n_params:,} parameters ({cfg.dtype}, "
           f"remat {out['remat']}) trained {args.steps} steps of "
           f"{args.batch} x {args.seq} tokens in {args.microbatches} "
-          f"microbatches through launch.train.main: loss {losses[0]:.4f} -> "
+          f"microbatches through launch.train.main over the host mesh "
+          f"{tuple(mesh.shape)} ('data', {out['mesh']['backend']}; "
+          f"{len(leaves)} DTensor leaves): loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; median step (steps 2-{args.steps}) "
           f"{step_ms:.1f} ms, {out['tokens_per_s']:.0f} tokens/s; peak "
           f"memory {out['peak_memory_gb']:.2f} GB "
@@ -1085,14 +1210,16 @@ def _phase_train(dev, smi: str) -> dict:
     # one more step under the profiler: a retake takes another step from
     # the state the last one left, which is as good a step to profile
     box = [state]
-    tok = data.device_batch(dc, args.steps, dev)
+    with use_mesh_rules(mesh, TL.host_rules()):
+        tok = data.sharded_batch(dc, args.steps, mesh)
+    step = TL.mesh_step(cfg, tc, mesh)
 
     def one_step():
-        box[0], _ = T.train_step(cfg, tc, box[0], tok)
+        box[0], _ = step(box[0], tok)
     with _train_regions() as (regions, calls):
         prof = _profile(one_step, f"{DENSE_ARCH} train step", smi,
                         regions=regions, counters=(conv_ops.conv1d_causal,))
-    prof.pop("rows")
+    nccl = sum(n for _, n, key in prof.pop("rows") if "nccl" in key.lower())
     busy, reg = prof["device_ms"], prof["by_region"]
     runs = 1 + prof["attempts"]                 # the warm-up and the trace
     per_run = {k: v / runs for k, v in calls.items()}
@@ -1108,7 +1235,7 @@ def _phase_train(dev, smi: str) -> dict:
     rest = busy - reg.get("forward", 0.0) - reg.get("optimizer", 0.0)
     shares["backward_and_rest"] = {"ms": rest, "share_of_device": rest / busy}
     out["profile"] = {**prof, "shares": shares, "layer_calls": per_run,
-                      "recompute_told_apart": told}
+                      "recompute_told_apart": told, "nccl_kernels": nccl}
     print(f"phase train profiled step: busy {busy:.1f} ms of wall "
           f"{prof['wall_ms']:.1f} ms (idle share "
           f"{100 * max(0.0, 1 - busy / prof['wall_ms']):.1f}%), "
@@ -1117,7 +1244,8 @@ def _phase_train(dev, smi: str) -> dict:
                       f"({100 * v['share_of_device']:.1f}%)"
                       for k, v in shares.items())
           + ("" if told else f"; recompute not told apart (layer bodies per "
-             f"step {per_run})") + f" | card {smi}")
+             f"step {per_run})") + f"; NCCL kernels in the step {nccl} "
+          f"(one-rank mesh) | card {smi}")
     del state, box
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -1400,6 +1528,165 @@ def _phase_dryrun(dev, smi: str, train: dict) -> dict:
                              f"{measured:.2f} GB on the card")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase dryrun: {out['seconds']:.1f} s")
+    return out
+
+
+#: phase examples: the port's examples, in the order they run
+EXAMPLES = ("quickstart", "heat_diffusion_2d", "serve_stencils",
+            "serve_batched", "train_lm")
+#: train_lm_torch's steps in the smoke (its default is 300)
+EXAMPLE_TRAIN_STEPS = 50
+
+
+def _example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy (an example's printed lines)."""
+
+    def __init__(self):
+        self.lines: list = []
+
+    def write(self, text: str) -> int:
+        self.lines.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
+
+
+def _phase_examples(dev, smi: str, wrappers: dict) -> dict:
+    """Each ``examples/<name>_torch.py`` (``EXAMPLES``) run on the card
+    through its ``main`` at its own size (``train_lm`` for
+    ``EXAMPLE_TRAIN_STEPS`` steps), the kernel wrappers' launch counters set
+    to 0 just before each and read just after: quickstart's backends
+    against ``direct``; heat diffusion's seven paths within 1e-2 of
+    ``direct`` (the example asserts) and their GStencil/s; every served
+    stencil job against ``direct`` (the example asserts) and jobs/s;
+    serve_batched's three models, Mamba2 through the conv kernel and its
+    tokens against the same call with ``use_kernels=False`` (a token that
+    differs must be a near tie: both models' logits at that place within
+    ``LM_TOL_OFF``); train_lm's losses finite and falling over the host
+    mesh, no process group left.  ``wrappers``: the smoke's kernel names
+    -> wrappers; returns each example's launches by those names."""
+    import contextlib as ctx
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    total = dict.fromkeys(wrappers, 0)
+    for name in EXAMPLES:
+        mod = _example(name)
+        for f in wrappers.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        tee = _Tee()
+        with ctx.redirect_stdout(tee):
+            if name == "train_lm":
+                (ROOT / "build").mkdir(exist_ok=True)
+                with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                    res = mod.main(["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                    "--ckpt-dir", tmp])
+            else:
+                res = mod.main([])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: f.launches for k, f in wrappers.items()}
+        for k, n in launched.items():
+            total[k] += n
+        out["launches"][name] = launched
+        row = {"seconds": seconds, "launches": launched}
+        if name == "quickstart":
+            row["max_abs_err_vs_direct"] = res["errors"]
+            if not res["is_24"] or max(res["errors"].values()) > TOL * (
+                    1 + float(res["direct"].abs().max())):
+                raise AssertionError(f"quickstart: {res['errors']}")
+            for k in ("cuda_sptc", "cuda_gemm", "cuda_direct"):
+                if not launched[k]:
+                    raise AssertionError(f"quickstart launched no {k}")
+            summary = ", ".join(f"{b} {e:.2e}"
+                                for b, e in res["errors"].items())
+            print(f"phase examples quickstart_torch: max |err| vs direct "
+                  f"{summary} | card {smi}")
+        elif name == "heat_diffusion_2d":
+            row["paths"] = res
+            summary = ", ".join(f"{b} {r['gstencil_s']:.3f}"
+                                for b, r in res.items())
+            print(f"phase examples heat_diffusion_2d_torch 512^2 x 400 "
+                  f"steps, GStencil/s (host clock, synced): {summary}; each "
+                  f"within 1e-2 of direct (worst "
+                  f"{max(r.get('max_err', 0.0) for r in res.values()):.2e})"
+                  f" | card {smi}")
+        elif name == "serve_stencils":
+            row.update({k: res[k] for k in ("jobs", "wall_s", "jobs_per_s",
+                                            "max_rel_err")})
+            print(f"phase examples serve_stencils_torch: {res['jobs']} jobs "
+                  f"from 8 clients in {res['wall_s']:.3f} s "
+                  f"({res['jobs_per_s']:.1f} jobs/s), every job vs direct "
+                  f"max |err| / (1 + |direct|) {res['max_rel_err']:.2e} | "
+                  f"card {smi}")
+        elif name == "serve_batched":
+            if not launched["conv1d_causal"]:
+                raise AssertionError("serve_batched: Mamba2 never reached "
+                                     "the conv1d kernel")
+            with ctx.redirect_stdout(_Tee()):
+                off, prompt, params, cfg = mod.run(ARCH, dev,
+                                                   use_kernels=False)
+            on = res[ARCH]
+            diff = (on != off).nonzero().tolist()
+            ties = []
+            for b, j in {(b, min(jj for bb, jj in diff if bb == b))
+                         for b, _ in diff}:
+                seq = torch.cat([prompt[b:b + 1], on[b:b + 1, :j]], dim=1)
+                lk = M.forward(params, cfg.scaled(use_kernels=True), seq)[0]
+                lp = M.forward(params, cfg, seq)[0]
+                ties.append(_rel(lk[:, -1], lp[:, -1]))
+            row.update({"mamba2_tokens_differ": len(diff),
+                        "near_tie_rel_err": ties})
+            tol = LM_TOL_OFF[ARCH]["float32"]
+            print(f"phase examples serve_batched_torch: qwen3, mamba2, "
+                  f"mixtral smoke served; mamba2 conv1d_causal launches "
+                  f"{launched['conv1d_causal']}, its tokens vs "
+                  f"use_kernels=False on the card: {len(diff)} of "
+                  f"{on.numel()} differ"
+                  + (f" (first differing place of each row: logits rel err "
+                     f"{[f'{t:.2e}' for t in ties]}, tol {tol})"
+                     if diff else "") + f" | card {smi}")
+            if any(t > tol for t in ties):
+                raise AssertionError(f"serve_batched: Mamba2's tokens differ "
+                                     f"beyond a near tie: {ties}")
+        else:
+            losses = [float(m.group(1)) for m in re.finditer(
+                r"step +\d+ loss ([0-9.naif]+)", "".join(tee.lines))]
+            step = int(res.opt.step)
+            row.update({"losses_logged": losses, "steps": step})
+            if step != EXAMPLE_TRAIN_STEPS or not losses or \
+                    not all(np.isfinite(losses)) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"train_lm: step {step}, logged losses "
+                                     f"{losses}")
+            if dist.is_initialized():
+                raise AssertionError("train_lm left a process group alive")
+            print(f"phase examples train_lm_torch: {step} steps over the "
+                  f"host mesh, logged losses {losses}, no process group "
+                  f"left | card {smi}")
+        print(f"phase examples {name}_torch: {seconds:.1f} s, launches "
+              f"{launched}")
+        out[name] = row
+    out["total_launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase examples: {out['seconds']:.1f} s")
     return out
 
 
@@ -2017,13 +2304,33 @@ def _halo_split(eng, ext, geo, per_call: int) -> dict:
     return out
 
 
+def _device_sequence(audit) -> list:
+    """The device ops of an audit's call, in order (its ``sequence`` less
+    the top-level torch ops and regions)."""
+    from repro_torch.kernels.common import KERNEL_REGIONS
+    return [n for n in audit.sequence
+            if not n.startswith("aten::") and n not in KERNEL_REGIONS]
+
+
+def _lost_ops(want: list, got: list) -> list:
+    """``(place in the call's device order, name)`` of every op of ``want``
+    that ``got`` lacks (matched in order)."""
+    import difflib
+    sm = difflib.SequenceMatcher(a=want, b=got, autojunk=False)
+    return [(i, want[i]) for tag, i1, i2, _, _ in sm.get_opcodes()
+            if tag in ("delete", "replace") for i in range(i1, i2)]
+
+
 def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N,
                  label: str = "phase vet") -> dict:
     """How often a trace of one call loses device ops, and whether the
     launch audit's traces (``vet.lowering.trace_device``) ever do: ``n``
     bare traces and ``n`` audit traces of box-2d1r ``cuda_sptc`` at a
     probe shape, each held against the audit's first count (and the bare
-    traces' lost device ops counted).  Raises if an audit trace differs."""
+    traces' lost device ops counted).  An audit trace with other counts is
+    reported on a line of its own: the ops it lost, by name and place in
+    the call's device order, and whether it kept its lead spins and its
+    tail spin.  Raises if an audit trace differs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import StencilEngine
@@ -2032,7 +2339,9 @@ def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N,
     eng = StencilEngine(make_stencil("box", 2, 1, seed=7), "cuda_sptc",
                         device=dev)
     x = lowering.probe_input((18, 18), dev)
-    want = lowering.audit_call(eng, x).counts
+    first = lowering.audit_call(eng, x)
+    want = first.counts
+    want_seq = _device_sequence(first)
     n_ops = want["kernels"] + want["device_ops"]
     bare_lost, lost_ops = 0, []
     for _ in range(n):
@@ -2045,20 +2354,44 @@ def _trace_check(dev, smi: str, n: int = TRACE_CHECK_N,
         bare_lost += got != want
         lost_ops.append(n_ops - got["kernels"] - got["device_ops"])
     t0 = dict(lowering.TRACE_STATS)
-    wrong = sum(lowering.profile_call(eng, x).counts != want
-                for _ in range(n))
-    retaken = lowering.TRACE_STATS["retaken"] - t0["retaken"]
+    wrong, lead_lost = [], []
+    for i in range(n):
+        a = lowering.profile_call(eng, x)
+        lead_lost.append(a.trace["lead"] - a.trace["lead_kept"])
+        if a.counts == want:
+            continue
+        lost = _lost_ops(want_seq, _device_sequence(a))
+        report = {"trace": i, "counts": a.counts, "lost": lost,
+                  "attempts": a.attempts, **a.trace}
+        wrong.append(report)
+        print(f"{label} trace check: audit trace {i} lost "
+              f"{len(lost)} of {n_ops} device ops "
+              f"{[f'#{p} {name[:60]}' for p, name in lost]}; lead spins "
+              f"kept {a.trace['lead_kept']}/{a.trace['lead']}, tail spin "
+              f"kept {a.trace['tail_kept']}, region kernels kept "
+              f"{a.trace['kept']} of launched {a.trace['launched']}; "
+              f"{a.attempts} attempts | card {smi}")
+    stats = {k: lowering.TRACE_STATS[k] - t0[k] for k in t0}
     print(f"{label} trace check box-2d1r cuda_sptc 18x18: bare traces "
           f"that lost device ops {bare_lost}/{n} (lost of {n_ops}: at most "
           f"{max(lost_ops)}, mean {statistics.mean(lost_ops):.2f}); audit "
-          f"traces {n} ({retaken} retaken for a lost marker), {wrong} with "
-          f"other counts than {want['kernels']} kernels + "
-          f"{want['device_ops']} device ops | card {smi}")
+          f"traces {n} ({stats['retaken']} retaken: {stats['lost_head']} "
+          f"without a lead spin, {stats['lost_tail']} without the tail "
+          f"spin, {stats['short_kernels']} short of a launched kernel; "
+          f"{stats['kept_lead_partly_lost']} kept with some lead spins "
+          f"lost: at most {max(lead_lost)}, mean "
+          f"{statistics.mean(lead_lost):.2f} of the kept traces' spins), "
+          f"{len(wrong)} with other counts than {want['kernels']} "
+          f"kernels + {want['device_ops']} device ops | card {smi}")
     if wrong:
-        raise AssertionError(f"{wrong} of {n} audit traces lost device ops")
+        raise AssertionError(f"{len(wrong)} of {n} audit traces lost device "
+                             f"ops: {wrong}")
     return {"n": n, "bare_lost": bare_lost, "bare_lost_ops_max":
             max(lost_ops), "bare_lost_ops_mean": statistics.mean(lost_ops),
-            "audit_retaken": retaken, "audit_wrong": wrong, "counts": want}
+            "audit_retaken": stats["retaken"], "audit_stats": stats,
+            "lead_spins_lost_max": max(lead_lost),
+            "lead_spins_lost_mean": statistics.mean(lead_lost),
+            "audit_wrong": len(wrong), "counts": want}
 
 
 def _phase_halo(dev, smi: str, randn) -> dict:
@@ -2784,12 +3117,28 @@ def main() -> int:
     results["train_resume"] = _phase_train_resume(dev, smi)
     results["train_variants"] = _phase_train_variants(dev, smi)
     # the profiler's head loss after minutes of load, bare against the
-    # audit's traces (phase vet took the same check near the run's start)
+    # audit's traces (phase vet took the same check near the run's start),
+    # with no process group alive: each training phase released its own
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("a process group is alive before the late "
+                             "trace check")
+    print("late trace check: no process group alive")
     results["trace_check_late"] = _trace_check(dev, smi, TRACE_CHECK_N // 4,
                                                label="after training")
 
     # -- phase dryrun: the fleet dry-run, and its check on this card --------
     results["dryrun"] = _phase_dryrun(dev, smi, results["train"])
+
+    # -- phase examples: examples/*_torch.py on the card ---------------------
+    wrappers = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
+                "cuda_gemm": gemm_ops.windows_gemm,
+                "cuda_direct": direct_ops.stencil2d,
+                "sptc_spmm": sptc_ops.sptc_spmm_windows,
+                "conv1d_causal": conv_ops.conv1d_causal}
+    results["examples"] = _phase_examples(dev, smi, wrappers)
+    for k, n in results["examples"]["total_launches"].items():
+        launches[k] += n
 
     # -- phase 5: summary -----------------------------------------------------
     meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",

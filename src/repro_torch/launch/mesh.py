@@ -21,6 +21,7 @@ Functions, not module constants: importing this module starts nothing.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Sequence
 
 import torch.distributed as dist
@@ -88,14 +89,29 @@ def make_production_mesh(multi_pod: bool = False, device: Device = None):
 def make_host_mesh(device: Device = None):
     """``("data",)`` over the cards this process really has: the ranks of
     the process group it was started in (one card each), or this one card
-    alone when it was started without one."""
+    alone when it was started without one.
+
+    A process that ``torchrun`` started (``WORLD_SIZE`` and the rendezvous
+    in its environment) and that has no group yet joins its launch's group
+    (``env://``), each rank on card ``LOCAL_RANK``; a process started
+    alone makes a group of one rank.  Either group is this module's, and
+    :func:`release` destroys it; a group the caller made stays its own.
+    The backend is ``nccl`` on the card and ``gloo`` on the CPU."""
     global _OWNED
     from torch.distributed.device_mesh import init_device_mesh
     kind = _device_type(device)
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if kind == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0,
-                                world_size=1)
+        kw: Dict[str, Any] = {"backend": "gloo"}
+        if kind == "cuda":
+            import torch
+            if "WORLD_SIZE" in os.environ:
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            kw = {"backend": "nccl", "device_id": resolve_device(device)}
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(init_method="env://", **kw)
+        else:
+            dist.init_process_group(store=dist.HashStore(), rank=0,
+                                    world_size=1, **kw)
         _OWNED = True
     return init_device_mesh(kind, (dist.get_world_size(),),
                             mesh_dim_names=("data",))

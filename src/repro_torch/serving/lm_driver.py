@@ -12,6 +12,18 @@ reference driver.
     driver = GenerateDriver(params, cfg, cache_len=64)
     fut = driver.submit(prompt_tokens, n_new=16)      # (S,) int
     toks = fut.result()                               # (n_new,) int32
+
+Under the mesh rules, as in the reference: a caller that serves DTensor
+parameters (laid out by ``param_shardings``) enters ``use_mesh_rules``
+around the driver's life; the rules are the process default, so the
+worker thread's ``constrain`` calls see them.  Each batch's prompts (and
+memories) are then split over the rules' batch axes (replicated when those
+do not divide the batch), and its tokens come back whole on every rank.
+On a mesh of more than one rank every rank must issue the same
+collectives in the same order, so the driver forms its batches by count
+(``BatchScheduler(by_count=True)``: ``max_batch`` jobs of one signature,
+the rest at ``drain``/``close``) and never by the ``max_wait_ms`` timer;
+each rank must submit the same requests in the same order.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.serving import engine as E
 from repro_torch.serving.metrics import MetricsRegistry, merged_latency
 from repro_torch.serving.scheduler import (BatchPolicy, BatchScheduler,
@@ -40,8 +53,9 @@ class _GenJob:
 class GenerateDriver:
     """Packs single-prompt generate requests into aligned batches.
 
-    The batches run on the device of the model's parameters; a batch's
-    latency is taken after a synchronise on that device.
+    The batches run on the device of the model's parameters (a DTensor's:
+    this rank's); a batch's latency is taken after a synchronise on that
+    device.  ``mesh``: the DeviceMesh of DTensor ``params`` (or None).
     """
 
     def __init__(self, params, cfg: ModelConfig, *,
@@ -55,11 +69,14 @@ class GenerateDriver:
         self.cache_len = cache_len
         self.greedy = greedy
         self.generator = generator
-        self.device = params["embed"].device
+        embed = params["embed"]
+        self.mesh = embed.device_mesh if SH.is_dtensor(embed) else None
+        self.device = embed.device
         self.metrics_registry = MetricsRegistry()
-        self._sched = BatchScheduler(self._run_batch, policy,
-                                     name=f"lm-{cfg.name}",
-                                     autostart=autostart)
+        self._sched = BatchScheduler(
+            self._run_batch, policy, name=f"lm-{cfg.name}",
+            autostart=autostart,
+            by_count=self.mesh is not None and self.mesh.size() > 1)
 
     # -- admission -----------------------------------------------------------
     def group_key(self, prompt, n_new: int, memory=None) -> str:
@@ -118,6 +135,7 @@ class GenerateDriver:
         return {
             "arch": self.cfg.name,
             "policy": {
+                "by_count": self._sched.by_count,
                 "max_batch": self._sched.policy.max_batch,
                 "max_wait_ms": self._sched.policy.max_wait_ms,
                 "max_queue": self._sched.policy.max_queue,
@@ -128,6 +146,33 @@ class GenerateDriver:
         }
 
     # -- execution -----------------------------------------------------------
+    def _place(self, x: torch.Tensor):
+        """A batch input (B, ...) on this rank's device; under a mesh, a
+        DTensor split over the batch axes of the active rules (the
+        default rules of the mesh outside ``use_mesh_rules``)."""
+        x = x.to(self.device)
+        if self.mesh is None:
+            return x
+        spec = SH.spec_for(("batch",), (x.shape[0],),
+                           SH.rules_for(self.mesh).acts, self.mesh)
+        return SH.distribute(x, SH.NamedSharding(self.mesh, spec))
+
+    def _generate(self, prompts, memory, n_new: int, cache_len: int):
+        if self.mesh is None:
+            toks, _ = E.generate(self.params, self.cfg, prompts, n_new,
+                                 cache_len, memory=memory, greedy=self.greedy,
+                                 generator=self.generator)
+            return toks
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            toks, _ = E.generate(self.params, self.cfg, self._place(prompts),
+                                 n_new, cache_len,
+                                 memory=(None if memory is None
+                                         else self._place(memory)),
+                                 greedy=self.greedy, generator=self.generator)
+            return toks.full_tensor() if SH.is_dtensor(toks) else toks
+
     def _run_batch(self, key, jobs: List[_GenJob]) -> list:
         group_key, n_new = key
         m = self.metrics_registry.group(group_key)
@@ -138,9 +183,7 @@ class GenerateDriver:
                 device=self.device, dtype=torch.int32)
             memory = (torch.stack([j.memory for j in jobs]).to(self.device)
                       if jobs[0].memory is not None else None)
-            toks, _ = E.generate(self.params, self.cfg, prompts, n_new,
-                                 cache_len, memory=memory, greedy=self.greedy,
-                                 generator=self.generator)
+            toks = self._generate(prompts, memory, n_new, cache_len)
             if toks.device.type == "cuda":
                 torch.cuda.synchronize(toks.device)
         except BaseException:

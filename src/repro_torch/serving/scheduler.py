@@ -19,6 +19,15 @@ share:
   * Backpressure: at ``max_queue`` queued jobs, ``submit`` either
     blocks until space frees up or rejects with :class:`QueueFullError`
     (``overflow="block" | "reject"``).
+  * ``by_count=True`` makes the batches a function of the submissions
+    alone, whatever the timing: a group is flushed only when it holds
+    ``max_batch`` jobs, in the order the groups filled, and the rest only
+    by ``drain`` or ``shutdown``, in the order of the groups' first jobs;
+    the ``max_wait_ms`` timer is off.  Processes that must issue the same
+    collectives in the same order (ranks serving one model on a mesh)
+    form the same batches this way when each submits the same jobs in
+    the same order.  The port adds this mode: the reference's timer
+    batches are formed per process.
 """
 from __future__ import annotations
 
@@ -59,13 +68,14 @@ class BatchPolicy:
 
 
 class _Job:
-    __slots__ = ("key", "payload", "future", "t_submit")
+    __slots__ = ("key", "payload", "future", "t_submit", "seq")
 
     def __init__(self, key, payload):
         self.key = key
         self.payload = payload
         self.future: Future = Future()
         self.t_submit = time.monotonic()
+        self.seq = 0                     # its place in the admission order
 
 
 class BatchScheduler:
@@ -82,10 +92,15 @@ class BatchScheduler:
 
     def __init__(self, run_batch: Callable[[Hashable, List[Any]], List[Any]],
                  policy: BatchPolicy | None = None, *, name: str = "batcher",
-                 autostart: bool = True):
+                 autostart: bool = True, by_count: bool = False):
         self._run_batch = run_batch
         self.policy = policy or BatchPolicy()
         self.name = name
+        self.by_count = by_count
+        #: by_count: the groups that filled, once per ``max_batch`` jobs, in
+        #: the order they filled
+        self._full: Deque[Hashable] = collections.deque()
+        self._submitted = 0
         self._cond = threading.Condition()
         self._groups: Dict[Hashable, Deque[_Job]] = collections.OrderedDict()
         self._total = 0
@@ -117,6 +132,7 @@ class BatchScheduler:
                     for job in q:
                         job.future.cancel()
                 self._groups.clear()
+                self._full.clear()
                 self._total = 0
             self._cond.notify_all()
             thread = self._thread
@@ -146,7 +162,12 @@ class BatchScheduler:
                 if not self._accepting:
                     raise RuntimeError(f"{self.name}: scheduler shut down "
                                        "while waiting for queue space")
-            self._groups.setdefault(key, collections.deque()).append(job)
+            job.seq = self._submitted
+            self._submitted += 1
+            q = self._groups.setdefault(key, collections.deque())
+            q.append(job)
+            if self.by_count and len(q) % self.policy.max_batch == 0:
+                self._full.append(key)
             self._total += 1
             self._cond.notify_all()
         return job.future
@@ -169,19 +190,28 @@ class BatchScheduler:
 
     # -- worker --------------------------------------------------------------
     def _pop_ready_locked(self, now: float) -> Optional[Tuple[Hashable, List[_Job]]]:
-        """The first group that is full, stale, or force-flushed; else None."""
+        """The first group that is full, stale, or force-flushed; else None.
+        ``by_count``: the group that filled first, else (flushing) the
+        group whose oldest job came first."""
         max_wait = self.policy.max_wait_ms / 1e3
         ready = None
-        for key, q in self._groups.items():
-            if len(q) >= self.policy.max_batch:
-                ready = key
-                break
-            if self._force_flush or self._stopping:
-                ready = key
-                break
-            if now - q[0].t_submit >= max_wait:
-                ready = key
-                break
+        if self.by_count:
+            if self._full:
+                ready = self._full.popleft()
+            elif (self._force_flush or self._stopping) and self._groups:
+                ready = min(self._groups,
+                            key=lambda k: self._groups[k][0].seq)
+        else:
+            for key, q in self._groups.items():
+                if len(q) >= self.policy.max_batch:
+                    ready = key
+                    break
+                if self._force_flush or self._stopping:
+                    ready = key
+                    break
+                if now - q[0].t_submit >= max_wait:
+                    ready = key
+                    break
         if ready is None:
             return None
         q = self._groups[ready]
@@ -193,6 +223,8 @@ class BatchScheduler:
         return ready, batch
 
     def _next_deadline_locked(self, now: float) -> Optional[float]:
+        if self.by_count:
+            return None
         max_wait = self.policy.max_wait_ms / 1e3
         deadlines = [q[0].t_submit + max_wait - now
                      for q in self._groups.values()]

@@ -13,6 +13,13 @@ A crash mid-write leaves only a .tmp dir, which :func:`latest_step` and
 :func:`restore` ignore; retention keeps the newest ``keep`` checkpoints;
 :class:`AsyncCheckpointer` writes in a background thread.
 
+A tree whose leaves are DTensors (a state laid out on a mesh) is saved as
+the same full arrays: every rank gathers each leaf (``full_tensor()``, a
+collective, issued on the calling thread and in one order on every rank),
+the rank at the mesh's origin alone writes, and all ranks then meet at a
+barrier, so none reads :func:`latest_step` before the commit.  A
+checkpoint written on any number of ranks restores on any other.
+
 NumPy has no bfloat16 (and the card's machine has no ``ml_dtypes``), so a
 bfloat16 leaf is stored as its bits, ``uint16``, with ``"bfloat16"`` in the
 manifest, and restored bit for bit.  :func:`restore` places every leaf on
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.nn import tree_map
+from repro_torch.distributed.sharding import is_dtensor
 
 MANIFEST = "manifest.json"
 BF16 = "bfloat16"
@@ -75,12 +82,15 @@ class _HostLeaf:
 
 
 def _to_host(leaf) -> _HostLeaf:
-    """A leaf (tensor, array or number) as a host copy that later in-place
-    updates of the tensor cannot reach; a bfloat16 tensor's array holds its
-    bits as uint16."""
+    """A leaf (tensor, DTensor, array or number) as a host copy that later
+    in-place updates of the tensor cannot reach; a bfloat16 tensor's array
+    holds its bits as uint16.  A DTensor is gathered whole first (a
+    collective: every rank of its mesh must make the same call)."""
     if isinstance(leaf, _HostLeaf):
         return leaf
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return _HostLeaf(t.view(torch.int16).numpy().view(np.uint16),
@@ -89,6 +99,34 @@ def _to_host(leaf) -> _HostLeaf:
     else:
         arr = np.array(leaf)
     return _HostLeaf(arr, str(arr.dtype))
+
+
+def _mesh_of(tree: Any):
+    """The mesh of ``tree``'s first DTensor leaf, or None (a plain tree)."""
+    for leaf in _flatten(tree).values():
+        if is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes a tree on ``mesh``: the rank at the
+    mesh's origin does (with no mesh, whoever saves)."""
+    return mesh is None or not any(mesh.get_coordinate())
+
+
+def _join_gathers(tree: Any) -> None:
+    """A rank that does not write: its part in gathering every DTensor
+    leaf of ``tree``, in the writer's order."""
+    for leaf in _flatten(tree).values():
+        if is_dtensor(leaf):
+            leaf.full_tensor()
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
@@ -101,7 +139,21 @@ def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     """Atomically write the checkpoint of ``step``; returns the commit
-    path.  ``tree``'s leaves are tensors, arrays or numbers."""
+    path.  ``tree``'s leaves are tensors, DTensors, arrays or numbers; a
+    tree of DTensors is saved by every rank of their mesh together (see the
+    module's doc)."""
+    mesh = _mesh_of(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writes(mesh):
+        _write(ckpt_dir, step, tree, extra, keep)
+    else:
+        _join_gathers(tree)
+    _barrier(mesh)
+    return final
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict],
+           keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step_{step:08d}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -121,7 +173,6 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
         shutil.rmtree(final)
     os.replace(tmp, final)                     # atomic commit
     _retain(ckpt_dir, keep)
-    return final
 
 
 def _retain(ckpt_dir: str, keep: int) -> None:
@@ -175,24 +226,37 @@ def restore(ckpt_dir: str, skeleton: Any, step: Optional[int] = None,
 
 
 class AsyncCheckpointer:
-    """Overlap checkpoint I/O with training (one in flight at a time)."""
+    """Overlap checkpoint I/O with training (one in flight at a time).
+
+    A tree of DTensors is gathered on every rank's calling thread; the
+    writing rank's thread writes it, and :meth:`wait` (which every
+    :meth:`save` calls first) joins the write and then meets the other
+    ranks at a barrier."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._mesh = None
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self._mesh)
+        self._mesh = None
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         """Copy every leaf to the host now (a blocking copy, which waits for
         the device), then write in a thread: the optimizer updates the
         state in place, and would otherwise overwrite a leaf mid-write."""
         self.wait()
-        host_tree = tree_map(_to_host, tree)
+        self._mesh = _mesh_of(tree)
+        if not _writes(self._mesh):
+            _join_gathers(tree)
+            return
+        host_tree = _unflatten({path: _to_host(leaf) for path, leaf
+                                in _flatten(tree).items()}, tree)
         self._thread = threading.Thread(
             target=save, args=(self.ckpt_dir, step, host_tree, extra,
                                self.keep), daemon=True)

@@ -141,14 +141,29 @@ OUTPUT_TOL = 3e-5
 #: its first device events however long they run and whatever the host
 #: does before them: chip_smoke.py's trace check after training); every
 #: card trace opens with ``LEAD_SPINS`` short spins launched back to back
-#: (doubled on every retake), which the loss eats first, and a trace that
-#: lost them all is taken again, up to ``TRACE_ATTEMPTS`` times
+#: (doubled on every retake), which the loss eats first, and closes with
+#: one tail spin launched after the call.  A trace is kept only when both
+#: ends are vouched for (a lead spin and the tail spin) and it holds every
+#: kernel the wrappers counted; any other is taken again, up to
+#: ``TRACE_ATTEMPTS`` times.  A lead spin, not all of them: late in a run
+#: the loss eats some spins of most traces and stops there (48 and 49 of
+#: 50 audit traces of chip_smoke.py's late check, up to 17 of 64 spins;
+#: once, early, 61 of 64; NVIDIA H100 80GB HBM3, 700.00 W), so a kept spin
+#: is what shows the loss ended before the call
 MARKER_KERNEL = "spin_kernel"
 LEAD_SPINS = 64
 LEAD_CYCLES = 2_000
+#: the tail spin runs 50 times as long as a lead spin: at the card's
+#: clocks (1-2 GHz) a lead spin takes 1-2 us and the tail 50-100 us, so
+#: its length tells it apart
+TAIL_CYCLES = 100_000
+TAIL_MIN_US = 20.0
 TRACE_ATTEMPTS = 8
-#: card traces taken / retaken by ``trace_device`` in this process
-TRACE_STATS = {"traces": 0, "retaken": 0}
+#: card traces taken / retaken by ``trace_device`` in this process, the
+#: retakes by what the trace lacked (a trace may lack several), and the
+#: traces kept although the head loss ate some of their lead spins
+TRACE_STATS = {"traces": 0, "retaken": 0, "lost_head": 0, "lost_tail": 0,
+               "short_kernels": 0, "kept_lead_partly_lost": 0}
 
 #: (spec ctor args, fuse_rows, temporal steps, probe input shape) — the
 #: reference's probes; the k=2 probe certifies the per-step profile
@@ -201,6 +216,8 @@ class CallAudit:
     ``out`` is the call's result.  ``attempts`` is how many times the
     profiled call ran: 1, plus one for each card trace that was retaken
     (``trace_device``); ``audit_call``'s warm-up is one call more.
+    ``trace`` (card only) describes the kept trace's ends and kernels
+    (``_trace_ends``).
     """
 
     counts: Dict[str, int]
@@ -209,6 +226,7 @@ class CallAudit:
     device_ms: Optional[Dict[str, float]] = None
     out: object = None
     attempts: int = 1
+    trace: Optional[Dict[str, object]] = None
 
     @property
     def kernel_share(self) -> Optional[float]:
@@ -271,42 +289,96 @@ def _summarize(events, on_card: bool) -> CallAudit:
                      sequence=tuple(sequence), device_ms=device_ms)
 
 
+def _wrappers() -> Dict[str, Callable]:
+    """The kernel wrappers by region name (``KERNEL_REGIONS``' keys), each
+    counting its launches in ``launches``."""
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    from repro_torch.kernels.stencil_direct import ops as direct_ops
+    from repro_torch.kernels.stencil_gemm import ops as gemm_ops
+    return {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
+            "sptc_spmm_windows": sptc_ops.sptc_spmm_windows,
+            "windows_gemm": gemm_ops.windows_gemm,
+            "stencil2d": direct_ops.stencil2d,
+            "conv1d_causal": conv_ops.conv1d_causal}
+
+
+def _trace_ends(events, lead: int, launched: Dict[str, int]) -> dict:
+    """What a card trace kept of its ends and of the wrappers' kernels:
+    ``lead`` spins launched and ``lead_kept``, ``tail_kept`` (the spins
+    that ran ``TAIL_MIN_US`` or longer: 0 or 1), ``launched`` and ``kept``
+    region kernels by wrapper."""
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    spins = [e.time_range.end - e.time_range.start
+             for e in on_dev if is_marker(e)]
+    tail = sum(us >= TAIL_MIN_US for us in spins)
+    kept = {w: sum(KERNEL_REGIONS[w] in e.name for e in on_dev
+                   if not is_marker(e) and e.name not in KERNEL_REGIONS)
+            for w in launched}
+    return {"lead": lead, "lead_kept": len(spins) - tail, "tail_kept": tail,
+            "launched": dict(launched), "kept": kept,
+            "device_events": len(on_dev)}
+
+
 def trace_device(fn: Callable[[], object], device: torch.device):
     """``(events, result, attempts)`` of one profiled call of ``fn()`` on
     the card.
 
     The trace opens with ``LEAD_SPINS`` short ``MARKER_KERNEL`` spins on
-    ``device``'s stream (doubled on each retake), synced before the call;
-    since lost events are those at a trace's head, a trace that holds a
-    spin holds every device op of the call.  A trace without one is taken
-    again, so ``fn`` runs ``attempts`` times (1 + the retakes) and a
-    caller that counts its launches counts them all; after
-    ``TRACE_ATTEMPTS`` such traces this raises.  The spins are left for
-    the caller to skip (``is_marker``)."""
+    ``device``'s stream (doubled on each retake), synced before the call,
+    and closes with one ``TAIL_CYCLES`` spin launched after it, before the
+    final synchronise.  It is kept only when it holds a lead spin (a lost
+    head stopped short of the call), the tail spin (nothing was lost at
+    its end) and, of each kernel wrapper (``KERNEL_REGIONS``), at least as
+    many kernels as the wrapper counted launches during the call (nothing
+    of the wrappers' was lost between).  Any other trace is taken again, so
+    ``fn`` runs ``attempts`` times (1 + the retakes) and a caller that
+    counts its launches counts them all; after ``TRACE_ATTEMPTS`` such
+    traces this raises.  The spins are left for the caller to skip
+    (``is_marker``)."""
+    events, out, attempts, _ = _trace(fn, device)
+    return events, out, attempts
+
+
+def _trace(fn: Callable[[], object], device: torch.device):
+    """:func:`trace_device`, and ``_trace_ends`` of the kept trace."""
+    wrappers = _wrappers()
     seen = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         TRACE_STATS["traces"] += 1
+        lead = LEAD_SPINS << (attempt - 1)
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with torch.cuda.device(device):
-                for _ in range(LEAD_SPINS << (attempt - 1)):
+                for _ in range(lead):
                     torch.cuda._sleep(LEAD_CYCLES)
                 torch.cuda.synchronize()
+            before = {w: f.launches for w, f in wrappers.items()}
             out = fn()
+            launched = {w: f.launches - before[w]
+                        for w, f in wrappers.items()}
+            with torch.cuda.device(device):
+                torch.cuda._sleep(TAIL_CYCLES)
             torch.cuda.synchronize(device)
         events = prof.events()
-        on_dev = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation]
-        markers = sum(map(is_marker, on_dev))
-        if markers:
-            return events, out, attempt
+        ends = _trace_ends(events, lead, launched)
+        lacks = {"lost_head": not ends["lead_kept"],
+                 "lost_tail": ends["tail_kept"] != 1,
+                 "short_kernels": any(ends["kept"][w] < n
+                                      for w, n in launched.items())}
+        if not any(lacks.values()):
+            TRACE_STATS["kept_lead_partly_lost"] += ends["lead_kept"] < lead
+            return events, out, attempt, ends
         TRACE_STATS["retaken"] += 1
-        seen.append(len(on_dev))
+        for k, v in lacks.items():
+            TRACE_STATS[k] += v
+        seen.append({k: v for k, v in ends.items() if k != "lead"})
     raise RuntimeError(
-        f"torch.profiler lost the head of {TRACE_ATTEMPTS} traces in a row "
-        f"(device events per trace: {seen}, with none of its spins): "
-        "no device count can be trusted")
+        f"torch.profiler lost the head, the tail or a counted kernel of "
+        f"{TRACE_ATTEMPTS} traces in a row (per trace: {seen}): no device "
+        "count can be trusted")
 
 
 def is_marker(event) -> bool:
@@ -317,9 +389,9 @@ def profile_call(fn: Callable[[torch.Tensor], object],
                  x: torch.Tensor) -> CallAudit:
     """Profile one call of ``fn(x)`` (no warm-up): outside-region counts."""
     on_card = x.device.type == "cuda"
-    attempts = 1
+    attempts, ends = 1, None
     if on_card:
-        events, out, attempts = trace_device(lambda: fn(x), x.device)
+        events, out, attempts, ends = _trace(lambda: fn(x), x.device)
     else:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = fn(x)
@@ -327,6 +399,7 @@ def profile_call(fn: Callable[[torch.Tensor], object],
     audit = _summarize(events, on_card)
     audit.out = out
     audit.attempts = attempts
+    audit.trace = ends
     return audit
 
 

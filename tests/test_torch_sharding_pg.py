@@ -27,7 +27,18 @@ the meshes ``(2,)`` ``("data",)`` and ``(1, 2)`` ``("data", "model")``:
   restored under replicated and under ``param_shardings`` layouts, a
   (4, 4) array under a row split, and ``sharded_batch`` gives the same
   global batch on both meshes;
-* ``launch.mesh.make_host_mesh`` spans the two ranks.
+* ``launch.mesh.make_host_mesh`` spans the two ranks;
+* ``launch.train.main --device cpu --smoke`` over the two ranks' host
+  mesh, against the same command in one process (the spawning process,
+  before and after the ranks run): the losses within ``TOL``; a run cut
+  at step 2 and resumed equals the unbroken 4-step run bit for bit; a
+  checkpoint the two ranks wrote (rank 0 alone writing) resumes in one
+  process and one written in one process resumes on the two ranks, each
+  ending on the unbroken run's state;
+* ``GenerateDriver`` serving DTensor parameters under ``use_mesh_rules``
+  on the two ranks: the same tokens as one device, ``constrain`` reached
+  from the worker thread, batches formed by count in the same order on
+  both ranks (a hang fails the run's time limit).
 """
 from __future__ import annotations
 
@@ -38,10 +49,11 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-TIMEOUT = 240                     # seconds; the run takes ~35 here
+TIMEOUT = 300                     # seconds; the run takes ~50 here
 TOL = 1e-5
 
 _WORKER = textwrap.dedent("""
@@ -278,12 +290,150 @@ _WORKER = textwrap.dedent("""
         return res
 
 
+    #: launch.train.main's flags: Qwen3's smoke config, 4 steps of 4 x 16
+    #: in 2 microbatches, a checkpoint every 2 steps
+    TRAIN_ARGV = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                  "--batch", "4", "--seq", "16", "--microbatches", "2",
+                  "--ckpt-every", "2", "--log-every", "1"]
+
+
+    def train(steps, ckpt_dir=None):
+        '''``launch.train.main`` for ``steps``: (its losses and grad norms,
+        its final state whole as numpy arrays).'''
+        from repro_torch.launch import train as TL
+        from repro_torch.models.nn import tree_leaves
+        rows = []
+        argv = TRAIN_ARGV + ["--steps", str(steps)] + (
+            ["--ckpt-dir", ckpt_dir] if ckpt_dir else [])
+        st = TL.main(argv, on_metrics=lambda s, m, t: rows.append(
+            [s, float(m["loss"]), float(m["grad_norm"])]))
+        return rows, [full(x).numpy() for x in tree_leaves(st.tree())]
+
+
+    def same_state(a, b):
+        return len(a) == len(b) and all(
+            x.shape == y.shape and x.dtype == y.dtype
+            and x.tobytes() == y.tobytes()
+            for x, y in zip(a, b))
+
+
+    def launcher(rank, out):
+        '''On the two ranks: the unbroken run, a run cut at step 2 and
+        resumed, and a resume of the one-process checkpoint (its step 2);
+        ``checkpoint.save`` calls counted on this rank.'''
+        from repro_torch.training import checkpoint as ckpt
+        writes = []
+        kept = ckpt.save
+
+        def counting(*a, **k):
+            writes.append(a[1])
+            return kept(*a, **k)
+        ckpt.save = counting
+        try:
+            whole, final = train(4)
+            cut, _ = train(2, out + "/ck2")
+            resumed, final2 = train(4, out + "/ck2")
+            from1, _ = train(4, out + "/ck1")
+        finally:
+            ckpt.save = kept
+        if rank == 0:
+            np.savez(out + "/ranks_final.npz", *final)
+        return {"whole": whole, "cut": cut, "resumed": resumed,
+                "from_one": from1, "resume_equal": same_state(final, final2),
+                "from_one_restored": same_state(
+                    restored(out + "/ck1", 2),
+                    npz_leaves(out + "/one_step2.npz")),
+                "writes": writes}
+
+
+    def restored(ckpt_dir, step):
+        '''The launcher's state restored from ``ckpt_dir`` at ``step`` onto
+        the host mesh as the launcher lays it out, whole, as numpy.'''
+        from repro_torch.launch import mesh as MS
+        from repro_torch.launch import train as TL
+        from repro_torch.models.nn import tree_leaves
+        from repro_torch.training import checkpoint as ckpt
+        args = TL.parse_args(TRAIN_ARGV + ["--steps", "4"])
+        world = TL.make_world(*TL.configs(args), MS.make_host_mesh("cpu"))
+        sh = world["state_shardings"]
+        tree, _ = ckpt.restore(ckpt_dir, world["state"].tree(), step=step,
+                               shardings={"params": sh.params,
+                                          "opt": sh.opt._asdict()})
+        return [full(x).numpy() for x in tree_leaves(tree)]
+
+
+    def npz_leaves(path):
+        arrs = np.load(path)
+        return [arrs[f"arr_{i}"] for i in range(len(arrs.files))]
+
+
+    def serving(rank, out):
+        '''Qwen3's smoke config served through ``GenerateDriver`` with its
+        parameters as DTensors on the host mesh, under the launcher's
+        rules, against the same requests on one device: 6 prompts of 8
+        tokens and 3 of 5, ``max_batch`` 4, the worker started after the
+        requests (4 of the 6 fill a batch; the rest flush at ``drain``).'''
+        import threading
+        from torch.distributed.tensor import DTensor
+        from repro_torch.configs.registry import get_config
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch import mesh as MS
+        from repro_torch.launch.train import host_rules
+        from repro_torch.models import layers, model as M
+        from repro_torch.models.nn import tree_map
+        from repro_torch.serving import BatchPolicy, GenerateDriver
+        cfg = get_config("qwen3-1.7b", smoke=True)
+        params = M.init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(3)
+        prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, n),
+                                   dtype=torch.int32)
+                   for n in (8,) * 6 + (5,) * 3]
+
+        def serve(p):
+            d = GenerateDriver(p, cfg, cache_len=16, autostart=False,
+                               policy=BatchPolicy(max_batch=4,
+                                                  max_wait_ms=0.0))
+            futs = [d.submit(x, 6) for x in prompts]
+            d.start()
+            d.drain()
+            got = [f.result(timeout=60) for f in futs]
+            d.close()
+            return torch.stack(got), d
+        want, _ = serve(params)
+        mesh = MS.make_host_mesh("cpu")
+        rules = host_rules()
+        _, axes = M.init_params(cfg, device="meta", with_axes=True)
+        dp = tree_map(SH.distribute, params,
+                      SH.param_shardings(axes, params, rules, mesh))
+        seen = []
+        kept = (layers.constrain, M.constrain)
+
+        def spy(x, *a, **k):
+            if threading.current_thread() is not threading.main_thread():
+                seen.append(SH.active_mesh_rules() is not None
+                            and isinstance(x, DTensor))
+            return kept[0](x, *a, **k)
+        layers.constrain = M.constrain = spy
+        try:
+            with SH.use_mesh_rules(mesh, rules):
+                got, d = serve(dp)
+        finally:
+            layers.constrain, M.constrain = kept
+        groups = d.metrics()["groups"]
+        return {"equal": bool(torch.equal(got, want)),
+                "worker_constrains": len(seen), "under_rules": all(seen),
+                "by_count": d._sched.by_count,
+                "batches": {k: g["batches"] for k, g in groups.items()}}
+
+
     def rank_main(rank, world, init, out):
         dist.init_process_group("gloo", init_method=init, rank=rank,
                                 world_size=world)
         try:
             res = {"cells": sharded_cells(rank, out),
-                   "elastic": elastic(rank, out)}
+                   "elastic": elastic(rank, out),
+                   "launcher": launcher(rank, out),
+                   "serving": serving(rank, out)}
             with open(f"{out}/rank{rank}.json", "w") as f:
                 json.dump(res, f)
         finally:
@@ -311,9 +461,30 @@ _WORKER = textwrap.dedent("""
             json.dump(res, f)
 
 
+    def one_process(out, after):
+        '''The launcher in this process alone: before the ranks run, the
+        unbroken run and a checkpoint at step 2 (``ck1``); after, a resume
+        of the ranks' checkpoint at step 4 (``ck2``), which takes no step.'''
+        if not after:
+            whole, _ = train(4)
+            _, step2 = train(2, out + "/ck1")
+            np.savez(out + "/one_step2.npz", *step2)
+            res = {"whole": whole}
+        else:
+            rows, final = train(4, out + "/ck2")
+            res = {"steps_after": rows, "equal": same_state(
+                final, npz_leaves(out + "/ranks_final.npz"))}
+        assert not dist.is_initialized()
+        with open(f"{out}/one_{'after' if after else 'before'}.json",
+                  "w") as f:
+            json.dump(res, f)
+
+
     if __name__ == "__main__":
         init, out = sys.argv[1], sys.argv[2]
+        one_process(out, after=False)
         mp.spawn(rank_main, args=(2, init, out), nprocs=2, join=True)
+        one_process(out, after=True)
         predictions(out)
         print("PG-OK")
 """)
@@ -332,6 +503,8 @@ def run(tmp_path_factory):
         r.stdout[-2000:] + r.stderr[-3000:])
     ranks = [json.loads((tmp / f"rank{i}.json").read_text())
              for i in range(2)]
+    for i, when in enumerate(("before", "after")):
+        ranks[i]["one"] = json.loads((tmp / f"one_{when}.json").read_text())
     return ranks, json.loads((tmp / "predicted.json").read_text())
 
 
@@ -403,3 +576,59 @@ def test_host_mesh_spans_the_process_group(run):
     ranks, _ = run
     for res in ranks:
         assert res["elastic"]["host_mesh"] == [[2], ["data"]]
+
+
+def test_launcher_on_two_ranks_equals_one_process(run):
+    """``launch.train.main`` over the two ranks' host mesh: the same steps
+    as one process, losses and grad norms within ``TOL``."""
+    ranks, _ = run
+    one = ranks[0]["one"]["whole"]
+    for res in ranks:
+        got = res["launcher"]["whole"]
+        assert [r[0] for r in got] == [r[0] for r in one] == [0, 1, 2, 3]
+        np.testing.assert_allclose([r[1:] for r in got],
+                                   [r[1:] for r in one], rtol=TOL, atol=TOL)
+
+
+def test_launcher_resume_on_two_ranks_is_bit_identical(run):
+    """Cut at step 2 and resumed: the losses and the final state of the
+    unbroken 4-step run, bit for bit; only rank 0 wrote the checkpoints
+    (each run saves at step 2 or 4 and again at its end)."""
+    ranks, _ = run
+    for rank, res in enumerate(ranks):
+        la = res["launcher"]
+        assert [r[0] for r in la["resumed"]] == [2, 3]
+        assert la["cut"] + la["resumed"] == la["whole"]
+        assert la["resume_equal"]
+        assert la["writes"] == ([2, 2, 4, 4, 4, 4] if rank == 0 else [])
+
+
+def test_checkpoints_move_between_one_and_two_ranks(run):
+    """A checkpoint the two ranks wrote resumes in one process (at step 4:
+    no step taken, the ranks' final state bit for bit), and one written in
+    one process (step 2) restores on the two ranks bit for bit and resumes
+    there with the unbroken run's losses."""
+    ranks, _ = run
+    after = ranks[1]["one"]
+    assert after["steps_after"] == [] and after["equal"]
+    for res in ranks:
+        la = res["launcher"]
+        assert [r[0] for r in la["from_one"]] == [2, 3]
+        assert la["from_one_restored"]
+        np.testing.assert_allclose([r[1:] for r in la["from_one"]],
+                                   [r[1:] for r in la["whole"][2:]],
+                                   rtol=TOL, atol=TOL)
+
+
+def test_generate_driver_under_mesh_rules_on_two_ranks(run):
+    """``GenerateDriver`` with DTensor parameters inside
+    ``use_mesh_rules``: the tokens of one device, ``constrain`` reached from
+    the worker thread under the process-default rules, and the batches
+    formed by count (the same on both ranks)."""
+    ranks, _ = run
+    for res in ranks:
+        sv = res["serving"]
+        assert sv["equal"] and sv["by_count"]
+        assert sv["worker_constrains"] > 0 and sv["under_rules"]
+        assert sv["batches"] == ranks[0]["serving"]["batches"]
+        assert sorted(sv["batches"].values()) == [1, 2]

@@ -156,6 +156,28 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("got,lost", [
+    (["k", "memset", "copy", "k2"], []),
+    (["memset", "copy", "k2"], [(0, "k")]),
+    (["k", "copy", "k2"], [(1, "memset")]),
+    (["k", "memset", "copy"], [(3, "k2")]),
+    (["k", "k2"], [(1, "memset"), (2, "copy")]),
+    (["k", "gemm", "copy", "k2"], [(1, "memset")])])
+def test_lost_ops_names_each_lost_op_by_its_place(smoke, got, lost):
+    """The late trace check's report: every op of the first audit's call
+    that a trace lacks, by its place in the call's device order, at the
+    head, in the middle or at the tail."""
+    assert smoke._lost_ops(["k", "memset", "copy", "k2"], got) == lost
+
+
+def test_device_sequence_keeps_only_device_ops(smoke):
+    audit = types.SimpleNamespace(sequence=(
+        "aten::add", "sptc_spmm_fused", "void spider::sptc_mma_kernel",
+        "Memset (Device)", "aten::copy_"))
+    assert smoke._device_sequence(audit) == [
+        "void spider::sptc_mma_kernel", "Memset (Device)"]
+
+
 @pytest.mark.cuda
 def test_profile_of_the_conv_kernel_on_the_card(smoke, cuda_device):
     from repro_torch.kernels.conv1d import ops as conv_ops

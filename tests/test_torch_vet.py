@@ -461,11 +461,14 @@ def test_card_audit_skips_the_trace_markers():
 
 class _StubTraces:
     """Stands in for ``torch.profiler.profile`` on the card: every trace
-    holds ``per_call`` region kernels behind the two marker spins, but the
-    traces numbered in ``lose`` have lost their head, markers included."""
+    holds ``per_call`` region kernels between two lead marker spins and the
+    long tail spin, but the traces numbered in ``lose`` have lost their
+    head, lead markers included, those in ``lose_tail`` their tail spin,
+    and those in ``lose_middle`` one region kernel between the ends."""
 
-    def __init__(self, per_call: int, lose=()):
+    def __init__(self, per_call: int, lose=(), lose_tail=(), lose_middle=()):
         self.per_call, self.lose, self.taken = per_call, set(lose), 0
+        self.lose_tail, self.lose_middle = set(lose_tail), set(lose_middle)
 
     def __call__(self, activities):
         return self
@@ -478,16 +481,21 @@ class _StubTraces:
         return False
 
     def events(self):
-        def dev(name, t):
+        def dev(name, t, us=5):
             return SimpleNamespace(
                 name=name, device_type=DeviceType.CUDA,
                 is_user_annotation=False,
-                time_range=SimpleNamespace(start=t, end=t + 5))
+                time_range=SimpleNamespace(start=t, end=t + us))
         kernels = [dev("void spider::sptc_mma_kernel<float, 0, false, 2>",
                        10 * (i + 2)) for i in range(self.per_call)]
+        if self.taken in self.lose_middle:
+            del kernels[len(kernels) // 2]
+        tail = [] if self.taken in self.lose_tail else [
+            dev("spin_kernel", 10 * (self.per_call + 2), us=60)]
         if self.taken in self.lose:
-            return kernels[1:]                    # the head of the trace
-        return [dev("spin_kernel", 0), dev("spin_kernel", 10)] + kernels
+            return kernels[1:] + tail             # the head of the trace
+        return [dev("spin_kernel", 0), dev("spin_kernel", 10)] + kernels \
+            + tail
 
 
 def _stub_card(monkeypatch, traces: _StubTraces):
@@ -534,9 +542,9 @@ def test_retaken_trace_counts_every_launch(monkeypatch, lose, planted,
 
 
 def test_retake_doubles_the_lead_spins(monkeypatch):
-    """Every card trace opens with ``LEAD_SPINS`` short spins; each retake
-    doubles them, so a head loss that grows with the card's load is
-    outrun."""
+    """Every card trace opens with ``LEAD_SPINS`` short spins and closes
+    with one long tail spin after the call; each retake doubles the lead
+    spins, so a head loss that grows with the card's load is outrun."""
     traces = _StubTraces(2, lose=(1, 2))
     x = _stub_card(monkeypatch, traces)
     spins = [[]]
@@ -547,7 +555,8 @@ def test_retake_doubles_the_lead_spins(monkeypatch):
     assert a.attempts == 3
     bursts = [b for b in spins if b]
     n, c = lowering.LEAD_SPINS, lowering.LEAD_CYCLES
-    assert bursts == [[c] * n, [c] * 2 * n, [c] * 4 * n]
+    t = [lowering.TAIL_CYCLES]
+    assert bursts == [[c] * n, t, [c] * 2 * n, t, [c] * 4 * n, t]
 
 
 def test_trace_that_keeps_losing_its_head_raises(monkeypatch):
@@ -557,6 +566,62 @@ def test_trace_that_keeps_losing_its_head_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="lost the head"):
         lowering.profile_call(lambda _x: calls.append(1), x)
     assert len(calls) == traces.taken == lowering.TRACE_ATTEMPTS
+
+
+def _counted_call(monkeypatch, per_call: int):
+    """A call that counts ``per_call`` launches on the fused wrapper's
+    counter, as the wrapper does when it launches its kernel; returns the
+    call and the list of its runs."""
+    from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    monkeypatch.setattr(sptc_ops.sptc_spmm_fused, "launches", 0)
+    runs = []
+
+    def call(_x):
+        sptc_ops.sptc_spmm_fused.launches += per_call
+        runs.append(per_call)
+        return len(runs)
+    return call, runs
+
+
+@pytest.mark.parametrize("lost", ["lose_tail", "lose_middle"])
+@pytest.mark.parametrize("traces_lost", [(1,), (1, 2)])
+def test_trace_short_of_an_end_or_a_launch_is_retaken(monkeypatch, lost,
+                                                      traces_lost):
+    """A trace that lost its tail spin, or holds fewer region kernels than
+    the wrapper counted launches in the call (one lost between two ends
+    it kept), is taken again; ``attempts`` counts every run, so an audited
+    call makes ``(1 + attempts) * per_call`` launches, and the kept trace
+    holds all of them and both ends."""
+    per_call = 3
+    traces = _StubTraces(per_call, **{lost: traces_lost})
+    x = _stub_card(monkeypatch, traces)
+    call, runs = _counted_call(monkeypatch, per_call)
+    before = dict(lowering.TRACE_STATS)
+    a = lowering.audit_call(call, x)
+    attempts = len(traces_lost) + 1
+    assert a.attempts == attempts == traces.taken
+    assert sum(runs) == (1 + a.attempts) * per_call
+    assert a.out == 1 + a.attempts                # the kept trace's call
+    assert a.counts["kernels"] == per_call and a.counts["device_ops"] == 0
+    assert a.trace["tail_kept"] == 1 and a.trace["lead_kept"] == 2
+    assert a.trace["launched"]["sptc_spmm_fused"] == per_call
+    assert a.trace["kept"]["sptc_spmm_fused"] == per_call
+    stat = {"lose_tail": "lost_tail", "lose_middle": "short_kernels"}[lost]
+    assert lowering.TRACE_STATS[stat] - before[stat] == attempts - 1
+    assert lowering.TRACE_STATS["retaken"] - before["retaken"] == attempts - 1
+
+
+@pytest.mark.parametrize("lost", ["lose_tail", "lose_middle"])
+def test_trace_that_keeps_losing_an_end_or_a_launch_raises(monkeypatch,
+                                                           lost):
+    """``TRACE_ATTEMPTS`` traces in a row without their tail spin, or short
+    of the launched kernels, raise, after running the call that often."""
+    traces = _StubTraces(2, **{lost: range(1, lowering.TRACE_ATTEMPTS + 1)})
+    x = _stub_card(monkeypatch, traces)
+    call, runs = _counted_call(monkeypatch, 2)
+    with pytest.raises(RuntimeError, match="the tail or a counted kernel"):
+        lowering.profile_call(call, x)
+    assert len(runs) == traces.taken == lowering.TRACE_ATTEMPTS
 
 
 def _card_counts(**kw):
