@@ -91,6 +91,11 @@ fifteen paths and the five examples, each with the launch counters set to
 
 Phase vet also plants one retake: the first trace of one full-size audit
 loses its markers, and the audit's launches must count the retaken call.
+It reads the verifier's settings through ``load_config`` (the repo's
+pyproject has no ``[tool.repro-torch-vet]`` block: the defaults), and
+runs ``python -m repro_torch.vet`` three times on the card under a block
+that re-ranks ``lowering-hot-gather`` (``VET_BLOCK``): the exit codes
+and findings each severity must give.
 Every profile is the launch audit's trace (``vet.lowering.trace_device``:
 spins at its head and one at its tail, a trace that lost either end or a
 counted kernel retaken), and holds the kernels it records to the
@@ -197,6 +202,42 @@ TRACE_CHECK_N = 200
 #: the full-size audit of phase vet whose first trace loses its markers on
 #: purpose, so the retake path runs and is checked in every run
 PLANTED_RETAKE = ("box-2d1r", "cuda_sptc")
+#: phase vet's configured CLI runs: a ``[tool.repro-torch-vet]`` block
+#: with the plain sptc backend alone, a gather budget of 0 (every sptc
+#: probe runs one window gather) and ``lowering-hot-gather`` at each
+#: severity, with the CLI's exit code that severity must give
+VET_BLOCK = """[tool.repro-torch-vet]
+invariant_radii = [1]
+baseline = "vet-baseline.json"
+
+[tool.repro-torch-vet.severity]
+"lowering-hot-gather" = "{severity}"
+
+[tool.repro-torch-vet.lowering]
+backends = ["sptc"]
+
+[tool.repro-torch-vet.lowering.budgets.sptc]
+gather = 0
+"""
+VET_SEVERITY_RC = (("warning", 0), ("error", 1), ("off", 0))
+#: ``python -m repro_torch.vet`` (``runpy``, as ``-m`` runs it) with the
+#: arguments after ``-c``; the kernel wrappers' launch counters go to
+#: stderr as a last ``launches {...}`` line
+VET_CLI = """
+import json, runpy, sys
+from repro_torch.kernels.sptc_spmm import ops as S
+from repro_torch.kernels.stencil_gemm import ops as G
+rc = 0
+try:
+    runpy.run_module("repro_torch.vet", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code
+print("launches " + json.dumps({
+    "sptc_spmm_fused": S.sptc_spmm_fused.launches,
+    "windows_gemm": G.windows_gemm.launches,
+    "sptc_spmm_windows": S.sptc_spmm_windows.launches}), file=sys.stderr)
+sys.exit(rc)
+"""
 #: device names of the three stencil kernels
 STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
 #: phase dryrun: the fleet cells ``python -m repro_torch.launch.dryrun``
@@ -2043,13 +2084,19 @@ def _phase_vet(dev, smi: str, randn) -> dict:
     from repro_torch.vet import code as vet_code
     from repro_torch.vet import invariants, lowering
     from repro_torch.vet.baseline import Baseline
-    from repro_torch.vet.config import VetConfig
+    from repro_torch.vet.config import VetConfig, load_config
     from repro_torch.vet.findings import counts_by_severity
 
     out: dict = {}
     t_phase = time.perf_counter()
     traces0 = dict(lowering.TRACE_STATS)
-    cfg = VetConfig(root=ROOT)
+    # the repo's pyproject holds no [tool.repro-torch-vet] block
+    cfg, default = load_config(root=ROOT), VetConfig(root=ROOT)
+    for field in dataclasses.fields(VetConfig):
+        got, want = getattr(cfg, field.name), getattr(default, field.name)
+        if got != want:
+            raise AssertionError(f"load_config at {ROOT}: {field.name} "
+                                 f"{got!r}, the default {want!r}")
     baseline = Baseline.load(cfg.baseline_path())
     tree = [ROOT / "src" / "repro_torch"]
     n_files = len(list(vet_code.iter_py_files(tree)))
@@ -2203,12 +2250,89 @@ def _phase_vet(dev, smi: str, randn) -> dict:
     for k, n in out["launches"].items():
         if n == 0:
             raise AssertionError(f"phase vet never launched {k}")
+    out["configured"] = _vet_configured(smi, verdict[lowering.FUSED_KERNEL])
     out["seconds"] = time.perf_counter() - t_phase
     out["profiler_traces"] = {k: n - traces0[k]
                               for k, n in lowering.TRACE_STATS.items()}
     print(f"phase vet: {out['seconds']:.1f} s, kernel launches "
           f"{out['launches']}; card traces {out['profiler_traces']['traces']}"
           f", retaken {out['profiler_traces']['retaken']} (1 planted)")
+    return out
+
+
+def _vet_configured(smi: str, fused_verdict: dict) -> dict:
+    """``python -m repro_torch.vet --analyzers invariants,lowering --json``
+    on the card, from a directory whose pyproject holds ``VET_BLOCK``, once
+    per severity of ``lowering-hot-gather``: the exit code of
+    ``VET_SEVERITY_RC``; that rule on every sptc probe at the severity, or
+    nowhere when it is off, and no other finding; no gemm probe; the fused
+    kernel's verdict as in the default run (``fused_verdict``); the fused
+    and gemm kernels launched."""
+    import collections
+    import os
+    import tempfile
+
+    from repro_torch.vet.lowering import FUSED_KERNEL
+
+    out = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-c", VET_CLI, "--analyzers",
+           "invariants,lowering", "--json"]
+    want_fused = json.loads(json.dumps(fused_verdict))
+    (ROOT / "build").mkdir(exist_ok=True)
+    for severity, want_rc in VET_SEVERITY_RC:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            (Path(tmp) / "pyproject.toml").write_text(
+                VET_BLOCK.format(severity=severity))
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+        label = f"phase vet configured lowering-hot-gather={severity}"
+        tail = res.stderr.strip().splitlines()
+        if not tail or not tail[-1].startswith("launches "):
+            raise AssertionError(f"{label}: exit {res.returncode}, no "
+                                 f"launch counts: {res.stderr[-3000:]}")
+        launches = json.loads(tail[-1].split(" ", 1)[1])
+        report = json.loads(res.stdout)
+        verdict = report["verdict"]
+        by_rule = dict(collections.Counter(
+            f"{f['rule']}:{f['severity']}" for f in report["findings"]))
+        probes = {k: len(v["probes"]) for k, v in verdict.items()}
+        certified = {k: v["certified"] for k, v in verdict.items()}
+        print(f"{label}: exit {res.returncode}, findings {by_rule}, probes "
+              f"{probes}, certified {certified}, launches {launches}, "
+              f"{seconds:.1f} s wall | card {smi}")
+        sptc = sorted(verdict["sptc_spmm"]["probes"])
+        want_flagged = [] if severity == "off" else sptc
+        flagged = sorted(f["symbol"] for f in report["findings"]
+                         if f["rule"] == "lowering-hot-gather"
+                         and f["severity"] == severity)
+        gemm = [p for v in verdict.values() for p in v["probes"]
+                if "gemm" in p] + [k for k in verdict if "gemm" in k]
+        problems = []
+        if not sptc:
+            problems.append("no sptc probe")
+        if res.returncode != want_rc:
+            problems.append(f"exit {res.returncode}, want {want_rc}")
+        if flagged != want_flagged:
+            problems.append(f"lowering-hot-gather on {flagged}, want "
+                            f"{want_flagged}")
+        if len(report["findings"]) != len(flagged):
+            problems.append(f"findings {by_rule}")
+        if gemm:
+            problems.append(f"gemm in the verdict: {gemm}")
+        if verdict.get(FUSED_KERNEL) != want_fused:
+            problems.append(f"fused verdict {verdict.get(FUSED_KERNEL)}, "
+                            f"the default run's {want_fused}")
+        if not (launches["sptc_spmm_fused"] and launches["windows_gemm"]):
+            problems.append(f"launches {launches}")
+        if problems:
+            raise AssertionError(f"{label}: " + "; ".join(problems)
+                                 + f" | {res.stderr[-2000:]}")
+        out[severity] = {"rc": res.returncode, "findings": by_rule,
+                         "probes": probes, "certified": certified,
+                         "launches": launches, "seconds": seconds}
     return out
 
 

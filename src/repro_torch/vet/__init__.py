@@ -16,10 +16,12 @@ Three analyzers over one findings/baseline/CLI spine, the counterparts of
   keys).
 
 Run with ``python -m repro_torch.vet [paths]`` (``--device cpu`` off the
-card).
+card); a project's ``[tool.repro-torch-vet]`` block in the nearest
+``pyproject.toml`` configures it (:func:`load_config`).
 """
 from repro_torch.vet.baseline import Baseline, BaselineEntry
-from repro_torch.vet.config import VetConfig
+from repro_torch.vet.config import VetConfig, load_config
 from repro_torch.vet.findings import Finding
 
-__all__ = ["Baseline", "BaselineEntry", "Finding", "VetConfig"]
+__all__ = ["Baseline", "BaselineEntry", "Finding", "VetConfig",
+           "load_config"]

@@ -8,7 +8,9 @@
 
 The launch audit (``lowering``) runs on the card unless ``--device cpu``
 is given, and raises without a card; ``invariants`` and ``code`` need no
-device.
+device.  Settings come from the ``[tool.repro-torch-vet]`` block of the
+nearest ``pyproject.toml`` at or above the root (``vet/config.py``);
+``--baseline`` overrides the block's baseline.
 
 Exit status: 0 when no *error* finding survives the baseline, 1 when at
 least one does, 2 on usage errors.  Warnings and infos never fail the
@@ -24,7 +26,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from repro_torch.vet.baseline import Baseline
-from repro_torch.vet.config import VetConfig
+from repro_torch.vet.config import VetConfig, load_config
 from repro_torch.vet.findings import Finding, counts_by_severity
 
 ANALYZERS = ("invariants", "lowering", "code")
@@ -44,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="emit a JSON report instead of text")
     p.add_argument("--baseline", default=None,
-                   help="baseline file (default: the package's "
-                        "baseline.json)")
+                   help="baseline file (default: the config block's "
+                        "baseline, else the package's baseline.json)")
     p.add_argument("--no-baseline", action="store_true",
                    help="ignore the baseline entirely")
     p.add_argument("--write-baseline", action="store_true",
@@ -116,7 +118,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"(choose from {', '.join(ANALYZERS)})", file=sys.stderr)
         return 2
 
-    cfg = VetConfig(root=Path(args.root) if args.root else Path.cwd())
+    root = Path(args.root) if args.root else None
+    cfg = load_config(root=root or Path.cwd())
+    if root is not None:
+        cfg.root = root
     if args.baseline:
         cfg.baseline = args.baseline
 

@@ -1,18 +1,38 @@
-"""The verifier's settings.
+"""``[tool.repro-torch-vet]`` configuration (pyproject.toml).
 
-The defaults equal what the repo's ``[tool.repro-vet]`` block sets for the
-reference (hot-path modules ``serving``/``tuner``, radii 1-4,
-``code-host-sync`` at warning), with the launch audit's budgets keyed by
-the port's backends (``gemm``, ``sptc``, ``cuda_sptc``).  The baseline
-ships inside this package (``baseline.json``).  The CLI's ``--root`` and
-``--baseline`` set the two fields a run may move; tests set the others on
-the dataclass directly.
+Everything has a working default: a bare ``python -m repro_torch.vet`` on
+a checkout needs no config at all.  The block has the reference's
+``[tool.repro-vet]`` schema and can:
+
+  * move the baseline file (``baseline = "vet-baseline.json"``, relative
+    to the root; by default the package's own ``baseline.json``);
+  * re-rank any rule's severity (``[tool.repro-torch-vet.severity]``,
+    ``rule-id = "error" | "warning" | "info" | "off"``);
+  * change which modules and functions count as serving/tuner *hot
+    paths* for the code analyzer (``hot_path_modules``,
+    ``hot_path_functions``) and the radii of the invariant sweep
+    (``invariant_radii``);
+  * choose the launch audit's plain backends (``[...lowering] backends``)
+    and tighten or relax its per-backend op budgets
+    (``[tool.repro-torch-vet.lowering.budgets.<backend>]``, op -> count
+    per 1-D application).
+
+The port reads its own block, not ``[tool.repro-vet]``: that block names
+the reference's baseline, whose entries are keyed by ``src/repro/...``
+paths, and budgets keyed by XLA opcodes (``dynamic-slice``) where the
+launch audit counts torch ops (``gather``, ``scatter``).  The defaults
+equal what the repo's ``[tool.repro-vet]`` block sets for the reference
+(hot-path modules ``serving``/``tuner``, radii 1-4, ``code-host-sync`` at
+warning), with the budgets keyed by the port's backends (``gemm``,
+``sptc``, ``cuda_sptc``).
 """
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import tomllib
 
 #: the port's baseline, shipped with the package
 DEFAULT_BASELINE = Path(__file__).resolve().parent / "baseline.json"
@@ -92,3 +112,55 @@ class VetConfig:
         p = Path(self.baseline)
         return p if p.is_absolute() else self.root / p
 
+
+def load_config(pyproject: Optional[Path] = None,
+                root: Optional[Path] = None) -> VetConfig:
+    """Config from a pyproject.toml's ``[tool.repro-torch-vet]`` block.
+
+    Missing file / missing block -> all defaults.  ``root`` anchors the
+    relative baseline path (defaults to the pyproject's directory).
+    """
+    cfg = VetConfig()
+    if pyproject is None:
+        pyproject = _find_pyproject(root or Path.cwd())
+    if pyproject is None or not pyproject.exists():
+        if root is not None:
+            cfg.root = Path(root)
+        return cfg
+    cfg.root = Path(root) if root is not None else pyproject.parent
+    with open(pyproject, "rb") as f:
+        data = tomllib.load(f)
+    block = data.get("tool", {}).get("repro-torch-vet", {})
+    if not isinstance(block, dict):
+        return cfg
+    if isinstance(block.get("baseline"), str):
+        cfg.baseline = block["baseline"]
+    if isinstance(block.get("hot_path_modules"), list):
+        cfg.hot_path_modules = [str(m) for m in block["hot_path_modules"]]
+    if isinstance(block.get("hot_path_functions"), list):
+        cfg.hot_path_functions = [str(m) for m in block["hot_path_functions"]]
+    if isinstance(block.get("invariant_radii"), list):
+        cfg.invariant_radii = [int(r) for r in block["invariant_radii"]]
+    sev = block.get("severity", {})
+    if isinstance(sev, dict):
+        for rule, s in sev.items():
+            cfg.severity[str(rule)] = str(s)
+    lowering = block.get("lowering", {})
+    if isinstance(lowering, dict):
+        if isinstance(lowering.get("backends"), list):
+            cfg.lowering_backends = [str(b) for b in lowering["backends"]]
+        budgets = lowering.get("budgets", {})
+        if isinstance(budgets, dict):
+            for backend, ops in budgets.items():
+                if isinstance(ops, dict):
+                    cfg.lowering_budgets.setdefault(str(backend), {}).update(
+                        {str(op): int(n) for op, n in ops.items()})
+    return cfg
+
+
+def _find_pyproject(start: Path) -> Optional[Path]:
+    for d in [start] + list(start.parents):
+        candidate = d / "pyproject.toml"
+        if candidate.exists():
+            return candidate
+    return None

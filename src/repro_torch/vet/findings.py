@@ -13,7 +13,7 @@ matching across line-number drift.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 SEVERITIES = ("error", "warning", "info")
 
@@ -57,6 +57,13 @@ def with_severity(finding: Finding, severity: str) -> Finding:
     if severity == finding.severity:
         return finding
     return dataclasses.replace(finding, severity=severity)
+
+
+def switched_on(findings: List[Finding],
+                severity_of: Callable[[str], str]) -> List[Finding]:
+    """``findings`` less those of rules whose configured severity is
+    ``"off"``: a rule set off reports nothing."""
+    return [f for f in findings if severity_of(f.rule) != "off"]
 
 
 def worst_severity(findings: List[Finding]) -> Optional[str]:

@@ -52,7 +52,7 @@ from repro_torch.core.stencil import paper_suite, star_mask
 from repro_torch.core.transform import (decompose_rows, default_l,
                                         kernel_matrix, lower_spec)
 from repro_torch.vet.config import VetConfig
-from repro_torch.vet.findings import Finding
+from repro_torch.vet.findings import Finding, switched_on
 
 _PATH = "src/repro_torch/core/sparsify.py"
 _IR_PATH = "src/repro_torch/core/ir.py"
@@ -60,8 +60,10 @@ _IR_PATH = "src/repro_torch/core/ir.py"
 
 def _finding(cfg: VetConfig, rule: str, symbol: str, message: str,
              path: str = _PATH) -> Finding:
-    return Finding(rule=rule, severity=cfg.severity_of(rule), path=path,
-                   line=0, symbol=symbol, message=message)
+    # a rule set "off" is still checked; run() drops its findings
+    sev = cfg.severity_of(rule)
+    return Finding(rule=rule, severity="info" if sev == "off" else sev,
+                   path=path, line=0, symbol=symbol, message=message)
 
 
 def check_kernel_matrix(cfg: VetConfig, K: np.ndarray, w: np.ndarray,
@@ -294,4 +296,4 @@ def run(cfg: VetConfig) -> List[Finding]:
         findings += verify_kernel(cfg, w, L, symbol)
     for plan, symbol in plan_probes(cfg):
         findings += check_lowered_plan(cfg, plan, symbol)
-    return findings
+    return switched_on(findings, cfg.severity_of)

@@ -108,7 +108,7 @@ from repro_torch.core.transform import decompose_rows, lower_spec
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.common import KERNEL_REGIONS, region
 from repro_torch.vet.config import VetConfig
-from repro_torch.vet.findings import Finding
+from repro_torch.vet.findings import Finding, switched_on
 
 _PATH = "src/repro_torch/core/engine.py"
 
@@ -182,9 +182,12 @@ PALLAS_PROBES: Tuple[Tuple[Tuple[str, int, int], Tuple[int, ...]], ...] = (
 )
 
 
-def _finding(cfg: VetConfig, rule: str, symbol: str, message: str) -> Finding:
-    return Finding(rule=rule, severity=cfg.severity_of(rule), path=_PATH,
-                   line=0, symbol=symbol, message=message)
+def _finding(cfg: VetConfig, rule: str, symbol: str, message: str,
+             path: str = _PATH) -> Finding:
+    # a rule set "off" is still checked; run() drops its findings
+    sev = cfg.severity_of(rule)
+    return Finding(rule=rule, severity="info" if sev == "off" else sev,
+                   path=path, line=0, symbol=symbol, message=message)
 
 
 def n_applications(spec: StencilSpec, fused: bool) -> int:
@@ -817,9 +820,8 @@ def audit_sharded(cfg: VetConfig, engine, u: torch.Tensor, nblocks: int,
     findings: List[Finding] = []
 
     def flag(rule: str, message: str) -> None:
-        findings.append(Finding(rule=rule, severity=cfg.severity_of(rule),
-                                path=_SHARDED_PATH, line=0, symbol=symbol,
-                                message=message))
+        findings.append(_finding(cfg, rule, symbol, message,
+                                 path=_SHARDED_PATH))
     if engine.transport.calls != expected * nblocks:
         flag("sharded-collective-budget",
              f"expected exactly {expected} exchanges per fused step (2 per "
@@ -917,30 +919,37 @@ def planted_global_gather(spec: StencilSpec, parts: tuple,
 def run(cfg: VetConfig, device: Device = None
         ) -> Tuple[List[Finding], Dict[str, dict]]:
     """All launch-audit findings + the per-kernel zero-overhead verdict.
+    A rule set ``"off"`` reports nothing and leaves the verdict alone.
 
     ``device=None`` is the card and raises without one.
     """
     device = resolve_device(device)
+
+    def on(fs: List[Finding]) -> List[Finding]:
+        return switched_on(fs, cfg.severity_of)
     findings: List[Finding] = []
     verdict: Dict[str, dict] = {}
     counts_by_backend: Dict[str, Dict[str, dict]] = {}
     for backend in cfg.lowering_backends:
         fs, per_probe = analyze_backend(cfg, backend, device)
+        fs = on(fs)
         findings += fs
         counts_by_backend[backend] = per_probe
         verdict[BACKEND_KERNEL.get(backend, backend)] = {
             "probes": per_probe, "certified": not fs}
     if "gemm" in counts_by_backend and "sptc" in counts_by_backend:
-        fs = sparse_parity(cfg, counts_by_backend["gemm"],
-                           counts_by_backend["sptc"])
+        fs = on(sparse_parity(cfg, counts_by_backend["gemm"],
+                              counts_by_backend["sptc"]))
         findings += fs
         if fs:
             verdict["sptc_spmm"]["certified"] = False
     fused_findings, fused_probes = analyze_fused(cfg, device)
+    fused_findings = on(fused_findings)
     findings += fused_findings
     verdict[FUSED_KERNEL] = {"probes": fused_probes,
                              "certified": not fused_findings}
     sharded_findings, sharded_ran = analyze_sharded(cfg, device)
+    sharded_findings = on(sharded_findings)
     findings += sharded_findings
     verdict["sharded_halo"] = {"probes": sharded_ran,
                                "certified": not sharded_findings}
@@ -951,6 +960,7 @@ def run(cfg: VetConfig, device: Device = None
         fs, info = check_rebuild(
             cfg, StencilEngine(spec, backend=backend, device=device),
             probe_input((34, 34), device), f"{kernel}/{spec.name}")
+        fs = on(fs)
         findings += fs
         verdict[kernel]["rebuild"] = info
         if fs:
