@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain torch version on the card, and drives
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, finds
+sparse tensor-core instructions in the SASS of the SpTC kernel and dense
+ones in the windows GEMM's, holds each kernel against its plain torch
+version on the card (the windows GEMM in each of its modes, at the
+paper's 1-D shapes, and with a planted fault: its 3xTF32 lo terms
+dropped), and drives
 fifteen paths and the five examples, each with the launch counters set to
 0 just before it and read just after:
 
@@ -336,34 +340,47 @@ def _bound_ms(bytes_moved: float, flops: float):
     return kernel_roofline_time(flops, bytes_moved) * 1e3, by
 
 
-def _sass_sparse_mma(lib_path: Path) -> dict:
-    """Sparse tensor-core instructions (``HMMA.SP``) in the SASS of every
-    ``sptc_mma_kernel`` instantiation of the built library, from the CUDA
-    toolkit's ``cuobjdump``.  Raises when there is none."""
+def _sass_mma(lib_path: Path) -> dict:
+    """Tensor-core instructions in the SASS of the built library, from the
+    CUDA toolkit's ``cuobjdump``: sparse ones (``HMMA.SP``) in every
+    ``sptc_mma_kernel`` instantiation and dense ones (``HMMA`` without
+    ``.SP``) in every ``windows_gemm_kernel`` one.  Raises when an
+    instantiation has none."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    found: dict = {}
+    wanted = {"sparse": ("sptc_mma_kernel", True),
+              "dense": ("windows_gemm_kernel", False)}
+    found: dict = {k: {} for k in wanted}
     func = None
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-        elif func and "sptc_mma_kernel" in func and "HMMA" in line \
-                and ".SP" in line:
-            instr = line.split("*/", 1)[-1].strip().rstrip(" ;")
-            found.setdefault(func, []).append(instr)
-    kernels = [f for f in set(re.findall(r"Function : (\S+)", sass))
-               if "sptc_mma_kernel" in f]
-    if not kernels or set(kernels) - set(found):
-        raise AssertionError(f"no sparse HMMA in the SASS of "
-                             f"{sorted(set(kernels) - set(found)) or 'any'} "
-                             f"sptc_mma_kernel ({len(kernels)} found)")
-    mnemonics = sorted({i.split()[0] for lst in found.values() for i in lst})
-    return {"kernels": len(kernels),
-            "instructions": sum(len(v) for v in found.values()),
-            "mnemonics": mnemonics,
-            "example": next(iter(found.values()))[0]}
+            continue
+        if not func or "HMMA" not in line:
+            continue
+        for k, (name, sparse) in wanted.items():
+            if name in func and (".SP" in line) == sparse:
+                instr = line.split("*/", 1)[-1].strip().rstrip(" ;")
+                found[k].setdefault(func, []).append(instr)
+    out = {}
+    for k, (name, _) in wanted.items():
+        kernels = [f for f in set(re.findall(r"Function : (\S+)", sass))
+                   if name in f]
+        if not kernels or set(kernels) - set(found[k]):
+            raise AssertionError(
+                f"no {k} HMMA in the SASS of "
+                f"{sorted(set(kernels) - set(found[k])) or 'any'} {name} "
+                f"({len(kernels)} found)")
+        out[k] = {"kernel": name, "kernels": len(kernels),
+                  "instructions": sum(len(v) for v in found[k].values()),
+                  "mnemonics": sorted({i.split()[1] if i.startswith("@")
+                                       else i.split()[0]
+                                       for lst in found[k].values()
+                                       for i in lst}),
+                  "example": next(iter(found[k].values()))[0]}
+    return out
 
 
 def _time_row(kern, plain, lib, tol: float, nbytes: float, flops: float,
@@ -2730,6 +2747,7 @@ def main() -> int:
     from repro_torch.kernels.conv1d import ops as conv_ops
     from repro_torch.kernels.conv1d.ref import conv1d_causal_plain
     from repro_torch.kernels.sptc_spmm import ops as sptc_ops
+    from repro_torch.kernels.sptc_spmm.fragments import tf32_round
     from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
                                                    sptc_spmm_windows_ref)
     from repro_torch.kernels.stencil_direct import ops as direct_ops
@@ -2766,11 +2784,12 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or line.startswith("["):
             print("  ptxas", line.strip())
-    sass = _sass_sparse_mma(build.library_path())
+    sass = _sass_mma(build.library_path())
     results["sass"] = sass
-    print(f"phase 1 SASS: {sass['instructions']} sparse HMMA instructions in "
-          f"the {sass['kernels']} sptc_mma_kernel instantiations "
-          f"({', '.join(sass['mnemonics'])}); e.g. {sass['example']}")
+    for k, v in sass.items():
+        print(f"phase 1 SASS: {v['instructions']} {k} HMMA instructions in "
+              f"the {v['kernels']} {v['kernel']} instantiations "
+              f"({', '.join(v['mnemonics'])}); e.g. {v['example']}")
 
     # -- phase 2: every kernel against its plain version on the card --------
     rng = np.random.default_rng(0)
@@ -2826,16 +2845,46 @@ def main() -> int:
     if not fault > TOL:
         raise AssertionError("a flipped metadata field passes the sptc check")
     results["sptc_planted_fault_rel_err"] = fault
-    for L in (4, 6, 8, 16):
-        for c in (1, 37, 300):
+    # the windows GEMM in each of its modes (C = 1; 1 < C < 16; C >= 16,
+    # even or odd), 7 tiles and several blocks with a ragged last warp
+    # item (64 rows of A), windows 8-byte aligned and one element past
+    # (element loads), then the paper's 1-D windows
+    for L in (4, 6, 8, 10, 16, 24):
+        for c in (1, 2, 3, 4, 8, 37, 300, 1024):
             for dt in (f32, torch.bfloat16):
                 km = randn(L, 2 * L, dtype=dt, seed=L)
-                win = randn(7, 2 * L, c, dtype=dt, seed=c)
-                got = gemm_ops.windows_gemm(km, win)
-                tol = TOL if dt == f32 else TOL_BF16
-                worst["gemm"] = max(worst["gemm"],
-                                    _err(got, windows_gemm_ref(km, win), tol))
-                cases["gemm"] += 1
+                for t in (7, 1541 if c < 16 else 77):
+                    n = t * 2 * L * c
+                    big = randn(n + 1, dtype=dt, seed=c + t)
+                    for off in ((0, 1) if c in (1, 3, 37, 1024) else (0,)):
+                        win = big[off:off + n].view(t, 2 * L, c)
+                        got = gemm_ops.windows_gemm(km, win)
+                        tol = TOL if dt == f32 else TOL_BF16
+                        worst["gemm"] = max(worst["gemm"], _err(
+                            got, windows_gemm_ref(km, win), tol))
+                        cases["gemm"] += 1
+    for L, t in ((4, N_1D // 4), (6, -(-N_1D // 6))):
+        for dt in (f32, torch.bfloat16):
+            km = randn(L, 2 * L, dtype=dt, seed=L)
+            win = randn(t, 2 * L, 1, dtype=dt, seed=t)
+            tol = TOL if dt == f32 else TOL_BF16
+            worst["gemm"] = max(worst["gemm"], _err(
+                gemm_ops.windows_gemm(km, win), windows_gemm_ref(km, win),
+                tol))
+            cases["gemm"] += 1
+            del win
+    # planted fault: the lo terms of the 3xTF32 split dropped, as the kernel
+    # computes them for TF32-rounded operands (their lo terms are 0); the
+    # same check must fail against the float32 operands' plain version
+    km = randn(8, 16, seed=8)
+    win = randn(29, 16, 1024, seed=29)
+    fault = _rel(gemm_ops.windows_gemm(tf32_round(km), tf32_round(win)),
+                 windows_gemm_ref(km, win))
+    print(f"phase 2 gemm planted fault (lo terms of the 3xTF32 split "
+          f"dropped): max rel err {fault:.3g} (tol {TOL})")
+    if not fault > TOL:
+        raise AssertionError("dropped 3xTF32 lo terms pass the gemm check")
+    results["gemm_planted_fault_rel_err"] = fault
     for spec in paper_suite():
         r = spec.radius
         taps = direct_ops.stencil_taps(spec.weights, dev)
@@ -3280,6 +3329,23 @@ def main() -> int:
     timed["conv1d_causal"] = ("src/repro_torch/kernels/csrc/conv1d_causal.cu",
                               "src/repro/kernels/conv1d/kernel.py:27",
                               conv_rows["serve"], f"{ARCH} prefill: ")
+    # the worst share of bound over the paper suite of each stencil kernel
+    # (phase 4's rows; the v1 SpMM is timed at the canonical shape alone)
+    worst_share = {}
+    for k, (name, _, _) in meta.items():
+        spec, row = min(((sp, rows[sp][k]) for sp in (s.name for s in suite)),
+                        key=lambda it: it[1]["bound_ms"] / it[1]["ms"])
+        worst_share[name] = {"spec": spec, "ms": row["ms"],
+                             "bound_ms": row["bound_ms"],
+                             "share": row["bound_ms"] / row["ms"]}
+    worst_share["sptc_spmm"] = {"spec": canon, "ms": spmm["ms"],
+                                "bound_ms": spmm["bound_ms"],
+                                "share": spmm["bound_ms"] / spmm["ms"]}
+    results["worst_share"] = worst_share
+    print("phase 5 worst share of bound over the paper suite: " + "; ".join(
+        f"{n} {w['spec']} {w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "
+        f"({100 * w['share']:.0f}%)" for n, w in worst_share.items())
+        + f" | card {smi}")
     kernels = []
     for name, (src, repl, t, where) in timed.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -3289,6 +3355,8 @@ def main() -> int:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
                         "shape": where + t["shape"]})
+        if name in worst_share:
+            kernels[-1]["worst_share"] = worst_share[name]
     results["kernels"] = kernels
     results["card"] = smi
     OUT_DIR.mkdir(exist_ok=True)

@@ -37,6 +37,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
 DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 #: shared memory a kernel may stage per block without opting in to more
 SMEM_LIMIT = 48 * 1024
+#: shared memory a block may take on the H100 once it opts in (227 KB)
+SMEM_OPT_IN = 232_448
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 

@@ -11,6 +11,14 @@ import torch
 from repro_torch.kernels.build import DTYPE_CODES, check, library, stream_ptr
 
 
+def table_bytes(L: int, K: int, itemsize: int) -> int:
+    """Shared memory of one block: the B fragments of an (L, K) kernel
+    matrix, one 8-byte word a lane for each k-step (8 positions in float32,
+    16 in bfloat16) and each block of 8 outputs."""
+    k_step = 8 if itemsize == 4 else 16
+    return -(-K // k_step) * -(-L // 8) * 32 * 8
+
+
 def windows_gemm_launch(km: torch.Tensor, windows: torch.Tensor,
                         y: torch.Tensor) -> None:
     """Launch on the current stream; returns without synchronising."""

@@ -7,9 +7,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
+from repro_torch.kernels.build import DTYPE_CODES, SMEM_OPT_IN
 from repro_torch.kernels.common import region
-from repro_torch.kernels.stencil_gemm.kernel import windows_gemm_launch
+from repro_torch.kernels.stencil_gemm.kernel import (table_bytes,
+                                                     windows_gemm_launch)
 from repro_torch.kernels.stencil_gemm.ref import windows_gemm_ref
 
 
@@ -26,9 +27,11 @@ def windows_gemm(km: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
         raise ValueError("km and windows lie on different devices")
     if not (km.is_contiguous() and windows.is_contiguous()):
         raise ValueError("km and windows must be contiguous")
-    if km.numel() * 4 > SMEM_LIMIT:
-        raise ValueError(f"kernel matrix {tuple(km.shape)} exceeds "
-                         f"{SMEM_LIMIT} bytes of shared memory")
+    smem = table_bytes(*km.shape, windows.element_size())
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"kernel matrix {tuple(km.shape)} needs {smem} bytes "
+                         f"of shared memory, over the {SMEM_OPT_IN} a block "
+                         f"may take")
     if windows.device.type == "cpu":
         with region("windows_gemm"):
             return windows_gemm_ref(km, windows)
