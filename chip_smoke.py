@@ -242,6 +242,12 @@ print("launches " + json.dumps({
     "sptc_spmm_windows": S.sptc_spmm_windows.launches}), file=sys.stderr)
 sys.exit(rc)
 """
+#: phase 2's random v1 operands (M, K/2), and the largest the wrapper takes
+V1_SHAPES = ((4, 4), (6, 6), (6, 7), (17, 12), (40, 20))
+V1_LARGEST = ((64, 96), (1, 6144), (6144, 1))
+#: phase 4's rows by kernel: the launch counter's name in the kernels line
+KERNEL_OF = {"sptc": "cuda_sptc", "gemm": "cuda_gemm", "direct": "cuda_direct",
+             "spmm": "sptc_spmm"}
 #: device names of the three stencil kernels
 STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
 #: phase dryrun: the fleet cells ``python -m repro_torch.launch.dryrun``
@@ -275,6 +281,19 @@ finally:
     MS.release()
 print(json.dumps(rec))
 """
+
+
+def _v1_operand(rng, m: int, kh: int):
+    """A random (M, K/2) v1 operand: N(0, 1) values, a tenth of them zero,
+    and 2:4 metadata drawn from [0, 4) (duplicates, descending slots, (0, 1)
+    and (2, 3) segments); with an odd K/2 the last segment's field stays in
+    {0, 1}, inside K, where the plain version can index it."""
+    v = rng.normal(size=(m, kh)).astype(np.float32)
+    v[rng.random((m, kh)) < 0.1] = 0
+    mt = rng.integers(0, 4, size=(m, kh))
+    if kh % 2:
+        mt[:, -1] = rng.integers(0, 2, size=m)
+    return v, mt
 
 
 def _time_ms(fn, reps: int, hold: bool = True) -> float:
@@ -343,14 +362,15 @@ def _bound_ms(bytes_moved: float, flops: float):
 def _sass_mma(lib_path: Path) -> dict:
     """Tensor-core instructions in the SASS of the built library, from the
     CUDA toolkit's ``cuobjdump``: sparse ones (``HMMA.SP``) in every
-    ``sptc_mma_kernel`` instantiation and dense ones (``HMMA`` without
-    ``.SP``) in every ``windows_gemm_kernel`` one.  Raises when an
-    instantiation has none."""
+    ``sptc_mma_kernel`` (fused) and every ``sptc_spmm_kernel`` (v1)
+    instantiation, and dense ones (``HMMA`` without ``.SP``) in every
+    ``windows_gemm_kernel`` one.  Raises when an instantiation has none."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     wanted = {"sparse": ("sptc_mma_kernel", True),
+              "sparse v1": ("sptc_spmm_kernel", True),
               "dense": ("windows_gemm_kernel", False)}
     found: dict = {k: {} for k in wanted}
     func = None
@@ -2924,6 +2944,53 @@ def main() -> int:
                     ref = want if got.shape[0] > 1 else want[2:3]
                     worst["spmm"] = max(worst["spmm"], _err(got, ref, tol))
                     cases["spmm"] += 1
+    # v1 SpMM on random 2:4 operands: M not a multiple of 16 and several M
+    # blocks, an odd K/2, windows with row stride N + 3 and contiguous ones,
+    # 70,001 tiles (past a grid's 65,535), and the largest operands the
+    # wrapper takes ((6144, 1): 217.5 KB of tables)
+    kinds = np.zeros(4, dtype=bool)
+    spmm_cases = [(m, kh, n, 7) for m, kh in V1_SHAPES
+                  for n in (1, 3, 37, 1000)]
+    spmm_cases += [(6, 6, n, 70_001) for n in (1, 3)]
+    spmm_cases += [(m, kh, n, 5) for m, kh in V1_LARGEST for n in (1, 3)]
+    for m, kh, n, t in spmm_cases:
+        v, mt = _v1_operand(rng, m, kh)
+        a, b = mt[:, 0:kh // 2 * 2:2], mt[:, 1::2]     # both slots of a segment
+        kinds |= [(a == b).any(), (a > b).any(), ((a == 0) & (b == 1)).any(),
+                  ((a == 2) & (b == 3)).any()]
+        for dt in (f32, torch.bfloat16):
+            vals = torch.as_tensor(v, device=dev).to(dt)
+            meta = torch.as_tensor(mt, device=dev)
+            big = randn(t, 2 * kh, n + 3, dtype=dt, seed=m + n + t)
+            tol = TOL if dt == f32 else TOL_BF16
+            for win in (big[:, :, 2:2 + n], big[:, :, :n].contiguous()):
+                got = sptc_ops.sptc_spmm_windows(vals, meta, win)
+                worst["spmm"] = max(worst["spmm"], _err(
+                    got, sptc_spmm_windows_ref(vals, meta, win), tol))
+                cases["spmm"] += 1
+            del big
+    if not kinds.all():
+        raise AssertionError(f"phase 2 v1 operands lack a kind of metadata "
+                             f"(duplicate, descending, (0, 1), (2, 3)): {kinds}")
+    # planted fault: the second pass dropped, as the kernel computes it for
+    # the operand with the value of every slot that pass 1 takes set to 0
+    # (float32: slot 1 of a segment whose two slots share an aligned pair)
+    v, mt = _v1_operand(rng, 17, 12)
+    a, b = mt[:, 0::2], mt[:, 1::2]
+    cut = v.copy()
+    cut[:, 1::2][((a >> 1) == (b >> 1)) & (v[:, 0::2] != 0)] = 0
+    vals, meta = (torch.as_tensor(v, device=dev),
+                  torch.as_tensor(mt, device=dev))
+    win = randn(29, 24, 1000, seed=29)
+    fault = _rel(sptc_ops.sptc_spmm_windows(torch.as_tensor(cut, device=dev),
+                                            meta, win),
+                 sptc_spmm_windows_ref(vals, meta, win))
+    print(f"phase 2 spmm planted fault (pass 1 dropped): max rel err "
+          f"{fault:.3g} (tol {TOL})")
+    if not fault > TOL:
+        raise AssertionError("a dropped second pass passes the spmm check")
+    results["spmm_planted_fault_rel_err"] = fault
+    del win
     for b in (1, 3):
         for t in (1, 3, 257):
             for d in (1, 37, 160, 5376):
@@ -3071,6 +3138,15 @@ def main() -> int:
         win = tile_windows(x2d, n_out, plan.L)[0].contiguous()
         app["gemm"] = (lambda: gemm_ops.windows_gemm(km, win),
                        lambda: windows_gemm_ref(km, win))
+        # the v1 SpMM on the same windows strided-swapped (its pre-swapped
+        # RHS) with the plan's first compressed operand
+        perm = torch.as_tensor(sp.perm, dtype=torch.int64, device=dev)
+        win_sw = tile_windows(x2d, n_out, plan.L, order=perm)[0].contiguous()
+        vals = torch.as_tensor(sp.operands[0].values, dtype=f32, device=dev)
+        meta_t = torch.as_tensor(sp.operands[0].meta, device=dev)
+        dense = sptc_matmul_dense_equiv(vals, meta_t, 2 * plan.L)   # (L, 2L)
+        app["spmm"] = (lambda: sptc_ops.sptc_spmm_windows(vals, meta_t, win_sw),
+                       lambda: sptc_spmm_windows_ref(vals, meta_t, win_sw))
         taps = direct_ops.stencil_taps(spec.weights, dev)
         xd = x[None] if d == 1 else x
         app["direct"] = (lambda: direct_ops.stencil2d(taps, xd),
@@ -3084,14 +3160,15 @@ def main() -> int:
         # inputs; the windows GEMM's is the dense product on the windows
         lib = {"sptc": lambda: F.conv2d(conv_in, conv_w),
                "gemm": lambda: torch.matmul(km, win),
-               "direct": lambda: F.conv2d(full_in, full_w)}
+               "direct": lambda: F.conv2d(full_in, full_w),
+               "spmm": lambda: torch.matmul(dense, win_sw)}
         lib_name = {"sptc": "F.conv2d", "gemm": "torch.matmul",
-                    "direct": "F.conv2d"}
+                    "direct": "F.conv2d", "spmm": "torch.matmul"}
         for k, (kern, plain) in app.items():
             got, want = kern(), plain()
             err = _err(got, want, TOL)
             lib_got = lib[k]()
-            if k == "gemm":                  # tiles -> the (n_out, C) output
+            if k in ("gemm", "spmm"):        # tiles -> the (n_out, C) output
                 got = got.reshape(-1, c)[:n_out]
                 lib_got = lib_got.reshape(-1, c)[:n_out]
             lib_err = float((lib_got.reshape(got.shape) - got).abs().max())
@@ -3110,6 +3187,12 @@ def main() -> int:
                 nbytes = (win.numel() + km.numel() + win.shape[0] * plan.L * c) * 4
                 flops = 2.0 * win.shape[0] * c * km.numel()
                 shape = f"windows {tuple(win.shape)} km {tuple(km.shape)}"
+            elif k == "spmm":
+                nbytes = (win_sw.numel() + win_sw.shape[0] * plan.L * c) * 4 \
+                    + vals.numel() * 8
+                flops = 2.0 * win_sw.shape[0] * c * int(torch.count_nonzero(vals))
+                shape = f"windows {tuple(win_sw.shape)} values " \
+                        f"{tuple(vals.shape)} (swapped, float32)"
             else:
                 nbytes = (x.numel() + pts) * 4
                 flops = 2.0 * pts * len(taps.host)
@@ -3128,9 +3211,10 @@ def main() -> int:
                   f"{plain_ms:.4f} library_ms({lib_name[k]}) {library_ms:.4f}"
                   + (f" F.conv2d_ms {line[k]['conv2d_ms']:.4f}"
                      if k == "gemm" else "")
-                  + f" bound_ms {bound:.4f} ({by}) launches "
-                  f"{launches['cuda_' + k]} | {shape} | card {smi}")
-        del app, lib, win, x2d, conv_in
+                  + f" bound_ms {bound:.4f} ({by}, "
+                  f"{100 * bound / ms:.0f}%) launches {launches[KERNEL_OF[k]]}"
+                  f" | {shape} | card {smi}")
+        del app, lib, win, win_sw, dense, x2d, conv_in
         # end to end: engine GStencil/s for each backend, F.conv2d beside it
         conv_ms = _time_ms(lambda: F.conv2d(full_in, full_w), 10, hold=False)
         e2e = {}
@@ -3178,37 +3262,6 @@ def main() -> int:
         torch.cuda.empty_cache()
     results["timing"] = rows
 
-    # v1 SpMM at the box-2d1r windows shape that cuda_gemm is timed at,
-    # the windows strided-swapped as its pre-swapped RHS
-    canon = "box-2d1r"          # the canonical shape of the kernels line
-    plan = StencilEngine(box1, "sptc", device=dev).plan_ir
-    L = plan.L
-    x = randn(N_2D + 2, N_2D + 2, seed=3)
-    x2d = x[0:N_2D, :].T.contiguous()
-    perm = torch.as_tensor(plan.sparsify.perm, dtype=torch.int64, device=dev)
-    win = tile_windows(x2d, N_2D, L, order=perm)[0].contiguous()
-    del x, x2d
-    opnd = plan.sparsify.operands[0]
-    vals = torch.as_tensor(opnd.values, dtype=f32, device=dev)
-    meta_t = torch.as_tensor(opnd.meta, device=dev)
-    dense = sptc_matmul_dense_equiv(vals, meta_t, 2 * L)          # (L, 2L)
-    t_, _, c = win.shape
-    spmm = _time_row(
-        lambda: sptc_ops.sptc_spmm_windows(vals, meta_t, win),
-        lambda: sptc_spmm_windows_ref(vals, meta_t, win),
-        lambda: torch.matmul(dense, win), TOL,
-        nbytes=(win.numel() + t_ * L * c) * 4 + vals.numel() * 8,
-        flops=2.0 * t_ * c * int(torch.count_nonzero(vals)),
-        shape=f"windows {tuple(win.shape)} values {tuple(vals.shape)} "
-              f"(swapped, float32)")
-    print(f"timing {canon} sptc_spmm (v1): kernel_ms {spmm['ms']:.4f} (with "
-          f"the host's launch {spmm['launch_ms']:.4f}) plain_ms {spmm['plain_ms']:.4f} library_ms(torch.matmul dense) "
-          f"{spmm['library_ms']:.4f} bound_ms {spmm['bound_ms']:.4f} "
-          f"({spmm['bound_by']}) launches {launches['sptc_spmm']} | "
-          f"{spmm['shape']} | card {smi}")
-    del win, dense
-    torch.cuda.empty_cache()
-
     # conv1d at the serve shape and at the prefill_32k sequence length, x a
     # column slice of the (B, T, 2*d_inner + 2*state + heads) projection
     conv_rows = {}
@@ -3236,7 +3289,6 @@ def main() -> int:
               f"({row['bound_by']}) | {row['shape']} | card {smi}")
         del proj, xc
         torch.cuda.empty_cache()
-    results["timing"]["sptc_spmm_v1"] = spmm
     results["timing"]["conv1d_causal"] = conv_rows
 
     # -- phase tuned: the tuner's entry points over the paper suite ----------
@@ -3314,33 +3366,29 @@ def main() -> int:
         launches[k] += n
 
     # -- phase 5: summary -----------------------------------------------------
-    meta = {"sptc": ("cuda_sptc", "src/repro_torch/kernels/csrc/sptc_fused.cu",
+    canon = "box-2d1r"          # the canonical shape of the kernels line
+    meta = {"sptc": ("src/repro_torch/kernels/csrc/sptc_fused.cu",
                      "src/repro/kernels/sptc_spmm/kernel.py:112"),
-            "gemm": ("cuda_gemm", "src/repro_torch/kernels/csrc/windows_gemm.cu",
+            "gemm": ("src/repro_torch/kernels/csrc/windows_gemm.cu",
                      "src/repro/kernels/stencil_gemm/kernel.py:24"),
-            "direct": ("cuda_direct",
-                       "src/repro_torch/kernels/csrc/stencil_direct.cu",
-                       "src/repro/kernels/stencil_direct/kernel.py:28")}
-    timed = {name: (src, repl, rows[canon][k], f"{canon}: ")
-             for k, (name, src, repl) in meta.items()}
-    timed["sptc_spmm"] = ("src/repro_torch/kernels/csrc/sptc_spmm.cu",
-                          "src/repro/kernels/sptc_spmm/kernel.py:56", spmm,
-                          f"{canon}: ")
+            "direct": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
+                       "src/repro/kernels/stencil_direct/kernel.py:28"),
+            "spmm": ("src/repro_torch/kernels/csrc/sptc_spmm.cu",
+                     "src/repro/kernels/sptc_spmm/kernel.py:56")}
+    timed = {KERNEL_OF[k]: (src, repl, rows[canon][k], f"{canon}: ")
+             for k, (src, repl) in meta.items()}
     timed["conv1d_causal"] = ("src/repro_torch/kernels/csrc/conv1d_causal.cu",
                               "src/repro/kernels/conv1d/kernel.py:27",
                               conv_rows["serve"], f"{ARCH} prefill: ")
     # the worst share of bound over the paper suite of each stencil kernel
-    # (phase 4's rows; the v1 SpMM is timed at the canonical shape alone)
+    # and of the v1 SpMM (phase 4's rows)
     worst_share = {}
-    for k, (name, _, _) in meta.items():
+    for k in meta:
         spec, row = min(((sp, rows[sp][k]) for sp in (s.name for s in suite)),
                         key=lambda it: it[1]["bound_ms"] / it[1]["ms"])
-        worst_share[name] = {"spec": spec, "ms": row["ms"],
-                             "bound_ms": row["bound_ms"],
-                             "share": row["bound_ms"] / row["ms"]}
-    worst_share["sptc_spmm"] = {"spec": canon, "ms": spmm["ms"],
-                                "bound_ms": spmm["bound_ms"],
-                                "share": spmm["bound_ms"] / spmm["ms"]}
+        worst_share[KERNEL_OF[k]] = {"spec": spec, "ms": row["ms"],
+                                     "bound_ms": row["bound_ms"],
+                                     "share": row["bound_ms"] / row["ms"]}
     results["worst_share"] = worst_share
     print("phase 5 worst share of bound over the paper suite: " + "; ".join(
         f"{n} {w['spec']} {w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "

@@ -34,6 +34,11 @@ Two routes, one per instruction:
 
 :func:`decode_tf32` / :func:`decode_bf16` are the plain inverses, used by
 the tests to hold the tables to the dense swapped matrix.
+
+The v1 kernel (``csrc/sptc_spmm.cu``) takes any (M, K/2) operand with any
+metadata in [0, 4), on the device, and builds its tables itself in its
+prologue.  :func:`v1_tables` is the plain torch version of that
+canonicalisation and :func:`decode_v1` its inverse.
 """
 from __future__ import annotations
 
@@ -220,3 +225,157 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     the products hi·hi + hi·lo + lo·hi keep float32 accuracy."""
     hi = tf32_round(x)
     return hi, tf32_round(x.float() - hi)
+
+
+# ---------------------------------------------------------------------------
+# the v1 kernel's canonical operand
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class V1Tables:
+    """The v1 kernel's shared-memory tables of one operand, as its prologue
+    builds them (float32: TF32 pairs; bfloat16: 2:4 chunks).
+
+    ``words``  (2, KS, M, 4) int32: lane word ``t`` of row ``m`` in k-step
+               ``ks`` of each pass — a float32 value (compressed column t)
+               or two bfloat16 values (columns 2t low, 2t + 1 high);
+    ``fields`` (2, KS, M) int32: the row's four 4-bit metadata fields;
+    ``second`` (MB,) bool: the 16-row M block runs pass 1.
+    """
+
+    words: torch.Tensor
+    fields: torch.Tensor
+    second: torch.Tensor
+
+
+def _raw_bits(values: torch.Tensor) -> torch.Tensor:
+    """Storage bits of float32 / bfloat16 values as non-negative int64."""
+    if values.dtype == torch.float32:
+        return values.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return values.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def _as_int32(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit patterns held in int64 as int32 (two's complement)."""
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+
+
+def v1_tables(values: torch.Tensor, meta: torch.Tensor) -> V1Tables:
+    """Canonicalise a compressed (M, K/2) operand for ``mma.sp``.
+
+    A slot contributes when its field is in [0, 4), its position is inside
+    K and its value is non-zero.  A segment's two contributing slots go into
+    pass 0 together where the instruction allows it — TF32: in different
+    aligned pairs (one non-zero per pair, field 0x4 or 0xE); BF16: at
+    different positions, in ascending order (a lone one beside a zero at
+    position 1, or 0 when it sits at 1) — and otherwise slot 1 goes into
+    pass 1 at its own position.  So no value is merged or rounded: pass 0
+    plus pass 1 is the dense operand exactly.
+    """
+    m, kh = values.shape
+    tf32 = values.dtype == torch.float32
+    if not tf32 and values.dtype != torch.bfloat16:
+        raise TypeError(f"values must be float32 or bfloat16, got "
+                        f"{values.dtype}")
+    k = 2 * kh
+    ks = -(-k // (TF32_K if tf32 else BF16_K))
+    chunks = 4 * ks                         # pairs (TF32) or segments (BF16)
+    nseg = chunks // 2 if tf32 else chunks
+    width = 2 * nseg                        # slots, padded with empty ones
+    vals = torch.zeros((m, width), dtype=torch.float32)
+    vals[:, :kh] = values.float()
+    bits = torch.zeros((m, width), dtype=torch.int64)
+    bits[:, :kh] = _raw_bits(values)
+    pos = torch.full((m, width), -1, dtype=torch.int64)
+    pos[:, :kh] = meta.to(torch.int64)
+    live = (pos >= 0) & (pos < 4) & (vals != 0)
+    zero = torch.zeros((), dtype=torch.int64)
+    if tf32:
+        q = torch.arange(chunks)
+        sa, sb = 2 * (q // 2), 2 * (q // 2) + 1           # slots of q's segment
+        h, qin = q % 2, q < kh
+        pa, pb = pos[:, sa], pos[:, sb]
+        ia = live[:, sa] & qin & (pa >> 1 == h)
+        ib = live[:, sb] & qin & (pb >> 1 == h)
+        field = lambda p: torch.where(p & 1 == 1, FIELD_POS1, FIELD_POS0)
+        w0 = torch.where(ia, bits[:, sa], torch.where(ib, bits[:, sb], zero))
+        e0 = torch.where(ia, field(pa), torch.where(ib, field(pb), FIELD_POS0))
+        both = ia & ib
+        w1 = torch.where(both, bits[:, sb], zero)
+        e1 = torch.where(both, field(pb), FIELD_POS0)
+    else:
+        s = torch.arange(chunks)
+        pa, pb = pos[:, 0::2], pos[:, 1::2]
+        ba, bb = bits[:, 0::2], bits[:, 1::2]
+        ia = live[:, 0::2] & (4 * s + pa < k)
+        ib = live[:, 1::2] & (4 * s + pb < k)
+        dist = ia & ib & (pa != pb)
+        lone = (ia | ib) & ~dist
+        pp = torch.where(ia, pa, pb)                      # the lone position
+        partner = torch.where(pp == 0, 1, 0)
+        i0 = torch.where(dist, torch.minimum(pa, pb),
+                         torch.where(lone, torch.minimum(pp, partner), 0))
+        i1 = torch.where(dist, torch.maximum(pa, pb),
+                         torch.where(lone, torch.maximum(pp, partner), 1))
+        first = torch.where(ia, ba, bb)
+        lo0 = torch.where(dist, torch.where(pa < pb, ba, bb),
+                          torch.where(lone & (pp == i0), first, zero))
+        hi0 = torch.where(dist, torch.where(pa < pb, bb, ba),
+                          torch.where(lone & (pp == i1), first, zero))
+        both = ia & ib & (pa == pb)
+        lo1 = torch.where(both & (pp == i0), bb, zero)
+        hi1 = torch.where(both & (pp == i1), bb, zero)
+        w0, w1 = lo0 | (hi0 << 16), lo1 | (hi1 << 16)
+        e0 = e1 = i0 | (i1 << 2)
+    shift = 4 * torch.arange(4)
+
+    def per_ks(w, e):
+        words = w.reshape(m, ks, 4).permute(1, 0, 2)
+        fields = (e.reshape(m, ks, 4) << shift).sum(-1).T
+        return words, fields
+
+    (wa, fa), (wb, fb) = per_ks(w0, e0), per_ks(w1, e1)
+    rows = both.any(dim=1)
+    mb = -(-m // ROWS)
+    second = torch.zeros(mb * ROWS, dtype=torch.bool)
+    second[:m] = rows
+    return V1Tables(words=_as_int32(torch.stack([wa, wb])),
+                    fields=_as_int32(torch.stack([fa, fb])),
+                    second=second.reshape(mb, ROWS).any(dim=1))
+
+
+def decode_v1(tables: V1Tables, kh: int, *, tf32: bool) -> torch.Tensor:
+    """Plain inverse of :func:`v1_tables`: the (2, M, K) float32 operand of
+    each pass.  Raises when a field is not one the instruction takes or a
+    value lies past K."""
+    words = tables.words.to(torch.int64) & 0xFFFFFFFF      # (2, KS, M, 4)
+    fields = tables.fields.to(torch.int64) & 0xFFFF        # (2, KS, M)
+    _, ks, m, _ = words.shape
+    nib = (fields[..., None] >> (4 * torch.arange(4))) & 0xF
+    if tf32:
+        if not bool(torch.isin(nib, torch.tensor([FIELD_POS0, FIELD_POS1])
+                               ).all()):
+            raise ValueError("invalid TF32 metadata field")
+        vals = _as_int32(words).view(torch.float32)
+        c = torch.arange(4)
+        cols = (TF32_K * torch.arange(ks)[:, None] + 2 * c[None, :]
+                )[None, :, None, :] + (nib == FIELD_POS1).to(torch.int64)
+        out = torch.zeros((2, ks, m, ks * TF32_K))
+        out.scatter_(3, cols, vals)
+        dense = out.sum(dim=1)                               # (2, M, KS*8)
+    else:
+        i0, i1 = nib & 3, nib >> 2
+        if bool((i0 >= i1).any()):
+            raise ValueError("invalid 2:4 metadata field")
+        halves = torch.stack([words & 0xFFFF, words >> 16], dim=-1)
+        vals = halves.to(torch.int16).view(torch.bfloat16).float()
+        base = (BF16_K * torch.arange(ks)[:, None]
+                + 4 * torch.arange(4)[None, :])[None, :, None, :]
+        cols = torch.stack([base + i0, base + i1], dim=-1)   # (2,KS,M,4,2)
+        out = torch.zeros((2, ks, m, ks * BF16_K))
+        out.scatter_(3, cols.reshape(2, ks, m, 8), vals.reshape(2, ks, m, 8))
+        dense = out.sum(dim=1)
+    k = 2 * kh
+    if bool((dense[..., k:] != 0).any()):
+        raise ValueError("a value lies past K")
+    return dense[..., :k]

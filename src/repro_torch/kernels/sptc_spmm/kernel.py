@@ -17,6 +17,16 @@ if TYPE_CHECKING:
     from repro_torch.kernels.sptc_spmm.fragments import Fragments
 
 
+def table_bytes(m: int, kh: int, itemsize: int) -> int:
+    """Shared memory of one block of the v1 kernel: the canonical tables of
+    an (M, K/2) operand, for two passes, per (k-step, row) four 4-byte lane
+    words and a 2-byte metadata word (a k-step is 4 pairs in float32, 4
+    segments in bfloat16), and a 4-byte flag per 16-row M block."""
+    k_step = 8 if itemsize == 4 else 16
+    cells = 2 * -(-2 * kh // k_step) * m
+    return cells * 16 + 4 * -(-m // 16) + cells * 2
+
+
 def sptc_fused_launch(x2d: torch.Tensor, y: torch.Tensor,
                       frags: "Fragments", *, n_out: int, L: int,
                       tf32: bool) -> None:

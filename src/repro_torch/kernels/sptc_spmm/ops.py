@@ -176,9 +176,16 @@ def sptc_spmm_windows(values: torch.Tensor, meta: torch.Tensor,
     """Over the leading tile axis: (T, K, N) -> (T, M, N), one launch.
 
     ``values`` (M, K/2) is cast to the windows' dtype (as the reference
-    casts it); ``meta`` (M, K/2) holds 2-bit positions in [0, 4).  The sums
-    are float32, the result in ``windows.dtype``; ``windows`` may be any
-    view with a unit column stride.
+    casts it); ``meta`` (M, K/2) holds 2-bit positions in [0, 4): a field
+    outside that range is outside the contract (the reference's one-hot
+    reads another segment's row with it, the plain version indexes with it
+    unguarded, the kernel drops the slot).  Both slots of a segment may name
+    one position (their products are summed), in either order.  A position
+    past K (a field of 2 or 3 in the last segment of an odd K/2) matches
+    nothing in the reference and the kernel.  The sums are float32, the
+    result in ``windows.dtype``; ``windows`` may be any view with a unit
+    column stride.  The kernel builds its tables from ``values`` and
+    ``meta`` on the card: nothing is copied to the host.
     """
     if values.dim() != 2 or meta.shape != values.shape:
         raise ValueError(f"values and meta must both be (M, K/2), got "
@@ -196,8 +203,11 @@ def sptc_spmm_windows(values: torch.Tensor, meta: torch.Tensor,
     if windows.shape[2] > 1 and windows.stride(2) != 1:
         raise ValueError("windows need a unit column stride")
     if values.numel() * 8 > SMEM_LIMIT:
-        raise ValueError(f"an operand of {tuple(values.shape)} needs more "
-                         f"than {SMEM_LIMIT} bytes of shared memory per block")
+        # the contract's limit (M * K/2 <= 6144 slots); the kernel's tables
+        # in shared memory fit every operand within it (kernel.table_bytes)
+        raise ValueError(f"an operand of {tuple(values.shape)} is past the "
+                         f"v1 limit of {SMEM_LIMIT // 8} slots (the kernel's "
+                         f"tables live in shared memory)")
     values = values.to(windows.dtype)
     if windows.device.type == "cpu":
         with region("sptc_spmm_windows"):
