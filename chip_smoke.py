@@ -425,8 +425,9 @@ def _profile(fn, label: str, smi: str, top: int = 8, regions: tuple = (),
     with them the head of the call) is taken again, so ``fn`` runs once
     more per retake and must be safe to repeat.  ``wall_ms`` is the host's
     time of the kept call, synchronised, without the spins.  The kernel
-    wrappers' regions (``KERNEL_REGIONS``) and ``regions`` also appear as
-    device-side annotations spanning their kernels; those rows are not
+    wrappers' regions (``KERNEL_REGIONS``), the engine's spans
+    (``ENGINE_SPANS``) and ``regions`` also appear as device-side
+    annotations spanning their kernels; those rows are not
     kernels and are left out of the busy time.  ``by_region`` holds the
     device time of the kernels launched inside each of ``regions``.
     ``counters`` are kernel wrappers (``KERNEL_REGIONS``' keys): the trace
@@ -436,7 +437,7 @@ def _profile(fn, label: str, smi: str, top: int = 8, regions: tuple = (),
     """
     import torch
     from torch.autograd import DeviceType
-    from repro_torch.kernels.common import KERNEL_REGIONS
+    from repro_torch.kernels.common import ENGINE_SPANS, KERNEL_REGIONS
     from repro_torch.vet.lowering import is_marker, trace_device
     fn()
     torch.cuda.synchronize()
@@ -452,7 +453,7 @@ def _profile(fn, label: str, smi: str, top: int = 8, regions: tuple = (),
     events, _, attempts = trace_device(
         timed, torch.device("cuda", torch.cuda.current_device()))
     wall_ms, launched = runs[-1]
-    marks = set(KERNEL_REGIONS) | set(regions)
+    marks = set(KERNEL_REGIONS) | set(ENGINE_SPANS) | set(regions)
     by_name: dict = {}
     for e in events:
         if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
@@ -2430,7 +2431,7 @@ def _device_ops(fn) -> list:
     with it the head of the call) is taken again."""
     import torch
     from torch.autograd import DeviceType
-    from repro_torch.kernels.common import KERNEL_REGIONS
+    from repro_torch.kernels.common import ENGINE_SPANS, KERNEL_REGIONS
     from repro_torch.vet.lowering import is_marker, trace_device
     fn()
     events, _, _ = trace_device(fn, torch.device("cuda", 0))
@@ -2440,6 +2441,7 @@ def _device_ops(fn) -> list:
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation
                   and e.name not in KERNEL_REGIONS
+                  and e.name not in ENGINE_SPANS
                   and not is_marker(e))
 
 

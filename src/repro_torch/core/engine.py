@@ -36,6 +36,11 @@ on its kernel's batch axis: a super-batch costs as many kernel launches as
 one job.  Fused rows, variable coefficients and 3-D ``cuda_direct`` loop
 over the jobs of a batch.
 
+Spans (``kernels/common.py::region``, on while a profiler is active):
+``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``
+and ``apply_batched`` around the emitted function, ``engine.pad`` per
+re-pad in ``iterate``.
+
 Device rule: an engine runs on the card (``device=None`` means ``cuda``)
 unless the caller passes ``device="cpu"``; without a card, ``device=None``
 raises instead of silently running on the CPU.
@@ -54,6 +59,7 @@ from repro_torch.core.sparsify import decode_24, sparsify_stencil_kernel
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.core.transform import default_l, kernel_matrix, lower_spec
 from repro_torch.device import Device, resolve_device
+from repro_torch.kernels.common import region
 from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, fused_operand,
                                                sptc_spmm_fused,
                                                sptc_spmm_windows)
@@ -499,7 +505,8 @@ class StencilEngine:
 
     def __call__(self, x: Tensor) -> Tensor:
         self._check(x, self.spec.ndim, f"{self.spec.ndim}-D")
-        return self._fn(x[None])[0]
+        with region("engine.apply"):
+            return self._fn(x[None])[0]
 
     def apply_batched(self, xs: Tensor) -> Tensor:
         """``(B, *spatial-with-halo)`` -> ``(B, *interior)``: every job in one
@@ -507,7 +514,8 @@ class StencilEngine:
         and 1-D/2-D ``cuda_direct`` (see the module docstring)."""
         self._check(xs, self.spec.ndim + 1,
                      f"(B, *spatial) {self.spec.ndim + 1}-D")
-        return self._fn(xs)
+        with region("engine.apply"):
+            return self._fn(xs)
 
     def iterate(self, x: Tensor, steps: int) -> Tensor:
         """Iterative (Jacobi-style) application with zero-halo re-padding.
@@ -521,9 +529,18 @@ class StencilEngine:
             raise ValueError(
                 f"steps={steps} must be a multiple of temporal_steps={k}")
         pad = (k * self.spec.radius,) * (2 * self.spec.ndim)
-        for _ in range(steps // k):
-            x = F.pad(self(x), pad)
+        with region("engine.iterate"):
+            for _ in range(steps // k):
+                x = _repad(self(x), pad)
         return x
+
+
+def _repad(y: Tensor, pad: Tuple[int, ...]) -> Tensor:
+    """``iterate``'s re-pad in its span.  ``y`` is freed as the call
+    returns, as it would be inline: holding it into the next step keeps one
+    more grid alive."""
+    with region("engine.pad"):
+        return F.pad(y, pad)
 
 
 def apply_stencil(spec: StencilSpec, x: Tensor, backend: str = "direct",

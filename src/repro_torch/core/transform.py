@@ -20,6 +20,7 @@ segment-gather schedule → backend emit — and returns the explicit
 """
 from __future__ import annotations
 
+import time
 from typing import TYPE_CHECKING, List, Optional, Tuple
 
 import numpy as np
@@ -194,7 +195,11 @@ def lower_spec(spec: StencilSpec, backend: str = "direct",
     ONE 2:4 pattern / meta-bits and the swap + gather tables are computed
     once) while the per-point values ride along as decompose-stage slabs.
     ``temporal_steps=k`` marks the plan as a fused k-step iterate.
+
+    ``lower_spec.calls`` and ``lower_spec.seconds`` count the plans lowered
+    in this process and their host time.
     """
+    t0 = time.perf_counter()
     from repro_torch.core import ir
     from repro_torch.core.sparsify import sparsify_matrices
 
@@ -287,4 +292,10 @@ def lower_spec(spec: StencilSpec, backend: str = "direct",
 
     plan = ir.LoweredPlan(spec=spec, L=L, stages=tuple(stages))
     plan.validate()
+    lower_spec.calls += 1
+    lower_spec.seconds += time.perf_counter() - t0
     return plan
+
+
+lower_spec.calls = 0        # type: ignore[attr-defined]
+lower_spec.seconds = 0.0    # type: ignore[attr-defined]

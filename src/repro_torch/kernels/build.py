@@ -9,7 +9,9 @@ source builds anew and an unchanged one is reused.  It is written under
 temporary name and moved into place with ``os.replace``, so concurrent
 builds never load a half-written file.
 
-Nothing here runs at import time: :func:`library` builds on first use.
+Nothing here runs at import time: :func:`library` builds on first use, and
+keeps that first call's seconds (the build, if any, and the load) in
+``library.seconds`` (``None`` until then).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -119,6 +122,7 @@ def build() -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
+    t0 = time.perf_counter()
     build()
     lib = ctypes.CDLL(str(library_path()))
     for name, argtypes in SIGNATURES.items():
@@ -127,7 +131,11 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.spider_error_string.argtypes = [ctypes.c_int]
     lib.spider_error_string.restype = ctypes.c_char_p
+    library.seconds = time.perf_counter() - t0    # type: ignore[attr-defined]
     return lib
+
+
+library.seconds = None    # type: ignore[attr-defined]
 
 
 def check(status: int, name: str) -> None:

@@ -1,12 +1,22 @@
-"""The profiler region every kernel wrapper opens around its kernel.
+"""The port's span: one ``torch.profiler.record_function`` range.
 
-Each wrapper runs its plain version (a CPU tensor) or launches its kernel
-(a CUDA tensor) inside one ``torch.profiler.record_function`` region named
-after the wrapper.  On the card the region holds the launch alone: the
-wrapper's own torch ops (an output buffer, a dtype or contiguity copy) run
-outside it.  ``repro_torch.vet.lowering`` counts those regions as the
-programs of a call: whatever runs outside them is the work the engine does
-around its kernels.
+:func:`region` is the only span ``repro_torch`` opens.  Spans are on
+exactly while a ``torch.profiler`` is active, so they share the profiler's
+clock with the device ops of the same trace; with no profiler a span costs
+one flag check.  Two families open it:
+
+* the kernel wrappers, one region named after the wrapper
+  (``KERNEL_REGIONS``) around the plain version (a CPU tensor) or the
+  launch (a CUDA tensor).  On the card the region holds the launch alone:
+  the wrapper's own torch ops (an output buffer, a dtype or contiguity
+  copy) run outside it.  ``repro_torch.vet.lowering`` counts those regions
+  as the programs of a call: whatever runs outside them is the work the
+  engine does around its kernels.
+* ``core/engine.py``'s ``StencilEngine`` (``ENGINE_SPANS``): one
+  ``engine.iterate`` per ``iterate`` call, one ``engine.apply`` per engine
+  call around its emitted function (the kernel regions nest inside it),
+  one ``engine.pad`` per re-pad of ``iterate``.  They hold no work of
+  their own: the launch audit walks through them.
 """
 from __future__ import annotations
 
@@ -24,9 +34,12 @@ KERNEL_REGIONS = {
     "conv1d_causal": "conv1d_causal_kernel",
 }
 
+#: the engine's spans, outermost first
+ENGINE_SPANS = ("engine.iterate", "engine.apply", "engine.pad")
+
 
 def region(name: str) -> ContextManager:
-    """The profiler region of kernel wrapper ``name``.
+    """The span ``name``: a profiler range while a profiler is active.
 
     With no profiler active this costs one flag check, where a bare
     ``record_function`` would enter the dispatcher on every call.

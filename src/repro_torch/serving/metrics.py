@@ -110,18 +110,10 @@ class GroupMetrics:
     def observe_latency(self, seconds: float) -> None:
         self.latency.observe(seconds)
 
-    @property
-    def occupancy(self) -> float:
-        """Mean jobs per executed super-batch (the continuous-batching win)."""
-        return self.batched_jobs / self.batches if self.batches else 0.0
-
-    @property
-    def padding_efficiency(self) -> float:
-        """Fraction of executed elements that were real payload (1.0 = none wasted)."""
-        return (self.payload_elems / self.padded_elems
-                if self.padded_elems else 1.0)
-
     def as_dict(self) -> dict:
+        """A snapshot: the counters, ``batch_occupancy`` (mean jobs per
+        executed super-batch) and ``padding_efficiency`` (the share of
+        executed elements that were payload; 1.0 when none was padded)."""
         with self._lock:
             submitted, completed = self.submitted, self.completed
             failed, rejected = self.failed, self.rejected

@@ -14,6 +14,7 @@ A partitioned ``mesh`` keys, tunes and runs the halo-exchange path
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Sequence
 
 import torch
@@ -74,12 +75,14 @@ def plan_for(spec: StencilSpec, shape: Sequence[int],
         else:
             factory = cache.engine
         before = cache.engine_plans(spec)
+        t0 = time.perf_counter()
         result = autotune(spec, tuple(shape), dtype, device=device,
                           mode=_resolve_mode(mode),
                           engine_factory=factory,
                           temporal_steps=temporal_steps,
                           coefficients=coefficients,
                           warmup=warmup, iters=iters)
+        cache.stats.tune_s += time.perf_counter() - t0
         cache.stats.tunes += 1
         plan = result.plan
         cache.store(key, plan)

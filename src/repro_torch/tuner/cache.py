@@ -72,6 +72,7 @@ class CacheStats:
     plan_hits: int = 0
     plan_misses: int = 0
     tunes: int = 0
+    tune_s: float = 0.0       # host seconds in autotune under plan_for
     engine_builds: int = 0
     engine_hits: int = 0
     loads: int = 0

@@ -11,7 +11,9 @@ An outermost region is one program, the counterpart of a ``pallas_call``.
 On the CPU a region holds its kernel's plain version and is not descended
 into.  On the card a region holds only the launch (a ctypes call, which
 runs no torch op), so the audit walks into it: a torch op that a wrapper
-ran inside its region still counts as outside work.
+ran inside its region still counts as outside work.  The engine's own
+spans (``ENGINE_SPANS``: ``engine.apply`` around a call) hold no work and
+are walked through, their children taken as top-level ops.
 
 Counting: only ops that do work are counted, and each once — an op of a
 class below is counted unless an enclosing op was already counted, so
@@ -106,7 +108,7 @@ from repro_torch.core.engine import (StencilEngine, _emit_const,
 from repro_torch.core.stencil import StencilSpec, make_stencil
 from repro_torch.core.transform import decompose_rows, lower_spec
 from repro_torch.device import Device, resolve_device
-from repro_torch.kernels.common import KERNEL_REGIONS, region
+from repro_torch.kernels.common import ENGINE_SPANS, KERNEL_REGIONS, region
 from repro_torch.vet.config import VetConfig
 from repro_torch.vet.findings import Finding, switched_on
 
@@ -261,8 +263,16 @@ def _summarize(events, on_card: bool) -> CallAudit:
         for child in e.cpu_children:
             walk(child, covered, in_region)
 
-    for e in sorted((e for e in events if e.device_type == DeviceType.CPU
-                     and e.cpu_parent is None),
+    def top_level(evs):
+        for e in evs:
+            if e.name in ENGINE_SPANS:
+                yield from top_level(e.cpu_children)
+            else:
+                yield e
+
+    for e in sorted(top_level(e for e in events
+                              if e.device_type == DeviceType.CPU
+                              and e.cpu_parent is None),
                     key=lambda e: e.time_range.start):
         if e.name.startswith(("aten::", *KERNEL_REGIONS)):
             sequence.append(e.name)
@@ -272,9 +282,10 @@ def _summarize(events, on_card: bool) -> CallAudit:
         kernel_names = tuple(KERNEL_REGIONS.values())
         counts["kernels"] = counts["device_ops"] = 0
         device_ms = {"kernel": 0.0, "outside": 0.0}
-        # each region also shows on the device as a user annotation
+        # each region and span also shows on the device as a user annotation
         for e in sorted((e for e in events if e.device_type == DeviceType.CUDA
                          and e.name not in KERNEL_REGIONS
+                         and e.name not in ENGINE_SPANS
                          and not e.is_user_annotation
                          and not is_marker(e)),
                         key=lambda e: e.time_range.start):
