@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, finds
-sparse tensor-core instructions in the SASS of the SpTC kernel and dense
+sparse tensor-core instructions in the SASS of the SpTC kernels and dense
 ones in the windows GEMM's, holds each kernel against its plain torch
 version on the card (the windows GEMM in each of its modes, at the
 paper's 1-D shapes, and with a planted fault: its 3xTF32 lo terms
-dropped), and drives
+dropped; the 2-D rows kernel with a box engine's own tables on every L
+the tuner offers, and with its row offsets reversed), and drives
 fifteen paths and the five examples, each with the launch counters set to
 0 just before it and read just after:
 
@@ -238,6 +239,7 @@ except SystemExit as e:
     rc = e.code
 print("launches " + json.dumps({
     "sptc_spmm_fused": S.sptc_spmm_fused.launches,
+    "sptc_spmm_rows2d": S.sptc_spmm_rows2d.launches,
     "windows_gemm": G.windows_gemm.launches,
     "sptc_spmm_windows": S.sptc_spmm_windows.launches}), file=sys.stderr)
 sys.exit(rc)
@@ -247,7 +249,7 @@ V1_SHAPES = ((4, 4), (6, 6), (6, 7), (17, 12), (40, 20))
 V1_LARGEST = ((64, 96), (1, 6144), (6144, 1))
 #: phase 4's rows by kernel: the launch counter's name in the kernels line
 KERNEL_OF = {"sptc": "cuda_sptc", "gemm": "cuda_gemm", "direct": "cuda_direct",
-             "spmm": "sptc_spmm"}
+             "spmm": "sptc_spmm", "rows2d": "sptc_rows2d"}
 #: device names of the three stencil kernels
 STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
 #: phase dryrun: the fleet cells ``python -m repro_torch.launch.dryrun``
@@ -370,6 +372,7 @@ def _sass_mma(lib_path: Path) -> dict:
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     wanted = {"sparse": ("sptc_mma_kernel", True),
+              "sparse rows": ("sptc_rows2d_kernel", True),
               "sparse v1": ("sptc_spmm_kernel", True),
               "dense": ("windows_gemm_kernel", False)}
     found: dict = {k: {} for k in wanted}
@@ -1691,7 +1694,8 @@ def _phase_examples(dev, smi: str, wrappers: dict) -> dict:
             if not res["is_24"] or max(res["errors"].values()) > TOL * (
                     1 + float(res["direct"].abs().max())):
                 raise AssertionError(f"quickstart: {res['errors']}")
-            for k in ("cuda_sptc", "cuda_gemm", "cuda_direct"):
+            # the quickstart's 2-D box runs cuda_sptc as the rows kernel
+            for k in ("sptc_rows2d", "cuda_gemm", "cuda_direct"):
                 if not launched[k]:
                     raise AssertionError(f"quickstart launched no {k}")
             summary = ", ".join(f"{b} {e:.2e}"
@@ -1786,11 +1790,14 @@ def _record_tunes(log: list):
         api.autotune = kept
 
 
-def _launches_per_call(eng) -> int:
-    """Kernel launches of one call of a one-step 1-D or 2-D engine, whatever
-    its batch: one per RowOp of a matrix kernel's plan, one of the direct
-    kernel."""
-    return 1 if eng.backend == "cuda_direct" else len(eng.plan_ir.decompose.ops)
+def _launched(eng, counters: dict) -> tuple:
+    """The key in ``counters`` of the wrapper one call of a one-step 1-D or
+    2-D engine launches, and its launches a call, whatever its batch
+    (``engine.kernel_launches``)."""
+    from repro_torch.core.engine import kernel_launches
+    (name, n), = kernel_launches(eng.plan_ir).items()
+    key, = (k for k, fn in counters.items() if fn.__name__ == name)
+    return key, n
 
 
 def _phase_tuned(dev, smi: str, randn, counters: dict, timing: dict) -> dict:
@@ -2011,10 +2018,10 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
         spec = key_spec[key]
         batches = m["batches"] - groups_before.get(key, 0)
         eng = engines[spec.name]
-        n = _launches_per_call(eng)
-        want[eng.backend] += batches * n
+        kernel, n = _launched(eng, counters)
+        want[kernel] += batches * n
         per_batch[spec.name] = {"plan": plans[spec.name].describe(),
-                                "batches": batches, "kernel": eng.backend,
+                                "batches": batches, "kernel": kernel,
                                 "launches_per_batch": n,
                                 "occupancy": m["batch_occupancy"],
                                 "padding_efficiency": m["padding_efficiency"]}
@@ -2072,8 +2079,9 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
             c0 = {k: fn.launches for k, fn in counters.items()}
             ys = eng.apply_batched(xs)
             torch.cuda.synchronize()
-            n = counters[b].launches - c0[b]
-            if n != _launches_per_call(eng):
+            key, per_call = _launched(eng, counters)
+            n = counters[key].launches - c0[key]
+            if n != per_call:
                 raise AssertionError(f"{spec.name} {b}: {n} launches for a "
                                      f"batch of 16")
             for i in (0, 15):
@@ -2082,12 +2090,12 @@ def _phase_serve_stencil(dev, smi: str, counters: dict) -> dict:
             call_ms = _time_ms(lambda: eng.apply_batched(xs), 5, hold=False)
             prof = _profile(lambda: eng.apply_batched(xs),
                             f"super-batch {spec.name} {b} x16", smi, top=4,
-                            counters=(counters[b],))
-            if prof["counted"][counters[b].__name__] != n:
+                            counters=(counters[key],))
+            if prof["counted"][counters[key].__name__] != n:
                 raise AssertionError(f"{spec.name} {b}: the profiled call "
                                      f"launched another count than {n}")
-            kern = sum(ms for ms, _, key in prof.pop("rows")
-                       if any(nm in key for nm in STENCIL_KERNELS))
+            kern = sum(ms for ms, _, op in prof.pop("rows")
+                       if any(nm in op for nm in STENCIL_KERNELS))
             row[b] = {"plan": plan.describe(), "launches": n,
                       "call_ms": call_ms, "kernel_device_ms": kern,
                       "outside_kernel_share": max(0.0, 1 - kern / call_ms),
@@ -2155,6 +2163,7 @@ def _phase_vet(dev, smi: str, randn) -> dict:
     # a check of the profiler, not of the path: its launches are not counted
     out["trace_check"] = _trace_check(dev, smi)
     counters = {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
+                "sptc_spmm_rows2d": sptc_ops.sptc_spmm_rows2d,
                 "windows_gemm": gemm_ops.windows_gemm,
                 "sptc_spmm_windows": sptc_ops.sptc_spmm_windows}
     for fn in counters.values():
@@ -2223,9 +2232,8 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         audits, errs, calls = {}, {}, {}
         for b in ("cuda_gemm", "cuda_sptc"):
             eng = StencilEngine(spec, b, device=dev)
-            per_call = _launches_per_call(eng)
-            counter = counters["sptc_spmm_fused" if b == "cuda_sptc"
-                               else "windows_gemm"]
+            key, per_call = _launched(eng, counters)
+            counter = counters[key]
             small = lowering.audit_call(eng, x_small)
             probe = small.counts
             n0 = counter.launches
@@ -2249,8 +2257,7 @@ def _phase_vet(dev, smi: str, randn) -> dict:
         dense = audits["cuda_gemm"].counts
         fs = lowering.check_fused(
             cfg, f"sptc_spmm_fused/{spec.name}", audits["cuda_sptc"].counts,
-            audits["cuda_sptc"].regions, dense,
-            lowering.n_applications(spec, fused=False))
+            audits["cuda_sptc"].regions, dense, spec)
         for b, a in audits.items():
             fs += lowering.check_device_ops(cfg, f"{b}/{spec.name}",
                                             a.counts)
@@ -2580,6 +2587,7 @@ def _phase_halo(dev, smi: str, randn) -> dict:
     from repro_torch.vet.lowering import TRACE_STATS
 
     counters = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
+                "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d}
     for fn in counters.values():
@@ -2618,13 +2626,14 @@ def _phase_halo(dev, smi: str, randn) -> dict:
                                    temporal_steps=k)
         one = StencilEngine(spec, b, temporal_steps=k, device=dev)
         naxes = len(eng.partition())
-        per_call = _launches_per_call(one) * k
+        key, per_call = _launched(one, counters)
+        per_call *= k
         want_launch = (1 + 2 * naxes) * per_call
-        c0 = counters[b].launches
+        c0 = counters[key].launches
         eng.transport.reset()
         got = eng(x)
         torch.cuda.synchronize()
-        launches = counters[b].launches - c0
+        launches = counters[key].launches - c0
         exchanges, sent = eng.transport.calls, eng.transport.sent_bytes
         with not_main():
             want = one(x)
@@ -2760,6 +2769,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.core.engine import (StencilEngine, apply_sptc_v1,
+                                         rows2d_operand, takes_rows2d,
                                          tile_windows)
     from repro_torch.core.sparsify import sparsify_stencil_kernel
     from repro_torch.core.sptc import sptc_matmul_dense_equiv
@@ -2771,11 +2781,13 @@ def main() -> int:
     from repro_torch.kernels.sptc_spmm import ops as sptc_ops
     from repro_torch.kernels.sptc_spmm.fragments import tf32_round
     from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                                   sptc_rows2d_ref,
                                                    sptc_spmm_windows_ref)
     from repro_torch.kernels.stencil_direct import ops as direct_ops
     from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
     from repro_torch.kernels.stencil_gemm import ops as gemm_ops
     from repro_torch.kernels.stencil_gemm.ref import windows_gemm_ref
+    from repro_torch.tuner.search import l_candidates
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2815,9 +2827,9 @@ def main() -> int:
 
     # -- phase 2: every kernel against its plain version on the card --------
     rng = np.random.default_rng(0)
-    worst = {"sptc": 0.0, "gemm": 0.0, "direct": 0.0, "spmm": 0.0,
-             "conv1d": 0.0}
-    cases = {"sptc": 0, "gemm": 0, "direct": 0, "spmm": 0, "conv1d": 0}
+    worst = {"sptc": 0.0, "rows2d": 0.0, "gemm": 0.0, "direct": 0.0,
+             "spmm": 0.0, "conv1d": 0.0}
+    cases = dict.fromkeys(worst, 0)
     dtypes = ((f32, None), (f32, torch.bfloat16), (torch.bfloat16, None))
     sptc_cases = [(r, L, c, star, n_out)
                   for r in (1, 2, 3) for L in (2 * r + 2, 16)
@@ -2867,6 +2879,56 @@ def main() -> int:
     if not fault > TOL:
         raise AssertionError("a flipped metadata field passes the sptc check")
     results["sptc_planted_fault_rel_err"] = fault
+    # the rows kernel with a box engine's own tables, on every L the tuner
+    # offers: batches of 1-3, odd shapes, H < 8, H = W = 1, a view at odd
+    # batch and row strides, rows off 16 bytes (4-, 8- and 16-byte copies)
+    for r in (1, 2, 3):
+        box = make_stencil("box", 2, r, seed=r)
+        for L in l_candidates(r):
+            for dt in (f32, torch.bfloat16):
+                rop = rows2d_operand(StencilEngine(
+                    box, "cuda_sptc", L=L, device=dev, dtype=dt).plan_ir,
+                    dev, dt)
+                rops = [(o.values, o.meta_words, o.star_fast)
+                        for o in rop.ops]
+                for b, h, w, view in ((1, 67, 131, "plain"),
+                                      (3, 37, 29, "strided"),
+                                      (1, 5, 204 - 2 * r, "offset"),
+                                      (3, 130, 130 - 2 * r, "plain"),
+                                      (1, 8, 1001, "plain"),
+                                      (2, 1, 1, "plain")):
+                    hh, ww = h + 2 * r, w + 2 * r
+                    if view == "strided":
+                        xs = randn(b, hh + 3, ww + 5, dtype=dt,
+                                   seed=h + r)[:, 1:1 + hh, 3:3 + ww]
+                    elif view == "offset":
+                        xs = randn(b * hh * ww + 1, dtype=dt,
+                                   seed=h + r)[1:].view(b, hh, ww)
+                    else:
+                        xs = randn(b, hh, ww, dtype=dt, seed=h + r)
+                    got = sptc_ops.sptc_spmm_rows2d(rop, xs)
+                    want = sptc_rows2d_ref(rops, rop.leads, xs,
+                                           halo=rop.halo, L=rop.L)
+                    tol = TOL if dt == f32 else TOL_BF16
+                    worst["rows2d"] = max(worst["rows2d"],
+                                          _err(got, want, tol))
+                    cases["rows2d"] += 1
+    # planted fault: the row offsets of the box's row ops reversed, so
+    # each op reads another op's rows; the same check must fail
+    rop = rows2d_operand(StencilEngine(make_stencil("box", 2, 1, seed=1),
+                                       "cuda_sptc", device=dev).plan_ir,
+                         dev, f32)
+    xs = randn(2, 41, 77, seed=98)
+    want = sptc_rows2d_ref([(o.values, o.meta_words, o.star_fast)
+                            for o in rop.ops], rop.leads, xs, halo=rop.halo,
+                           L=rop.L)
+    fault = _rel(sptc_ops.sptc_spmm_rows2d(
+        dataclasses.replace(rop, leads=rop.leads[::-1]), xs), want)
+    print(f"phase 2 rows2d planted fault (row offsets {rop.leads} "
+          f"reversed): max rel err {fault:.3g} (tol {TOL})")
+    if not fault > TOL:
+        raise AssertionError("reversed row offsets pass the rows2d check")
+    results["rows2d_planted_fault_rel_err"] = fault
     # the windows GEMM in each of its modes (C = 1; 1 < C < 16; C >= 16,
     # even or odd), 7 tiles and several blocks with a ragged last warp
     # item (64 rows of A), windows 8-byte aligned and one element past
@@ -3028,6 +3090,7 @@ def main() -> int:
     suite = paper_suite()
     backends = ("cuda_sptc", "cuda_gemm", "cuda_direct")
     counters = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
+                "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d}
     for fn in counters.values():
@@ -3108,32 +3171,44 @@ def main() -> int:
         pts = float(np.prod(dims))
         x = randn(*(s + 2 * r for s in dims), seed=3)
         line = {}
-        # the first 1-D application the engine makes for this spec
         eng = StencilEngine(spec, "cuda_sptc", device=dev)
         plan = eng.plan_ir
         mode = plan.decompose.mode
+        # the first 1-D application the per-RowOp loop makes for this spec
+        # (the dense kernels' windows are cut from it)
         if d == 1:
             x2d, n_out = x[:, None], N_1D
         elif mode == "star-axis":
             x2d, n_out = x[:, r:r + N_2D], N_2D        # strided view, no copy
         else:
-            x2d, n_out = x[0:N_2D, :].T.contiguous(), N_2D   # engine's copy
+            x2d, n_out = x[0:N_2D, :].T.contiguous(), N_2D   # the loop's copy
         w1 = plan.decompose.kernels[0]
         sp = plan.sparsify
-        fop = sptc_ops.fused_operand(
-            sp.operands[0], sp.perm, plan.L,
-            star_fast="auto" if mode in ("single", "star-axis") else False,
-            dtype=f32, device=dev)
         rows_in, c = x2d.shape
         conv_w = torch.as_tensor(np.asarray(w1), dtype=f32,
                                  device=dev).reshape(1, 1, -1, 1)
         conv_in = x2d.reshape(1, 1, rows_in, c)
-        app = {
-            "sptc": (lambda: sptc_ops.sptc_spmm_fused(fop, x2d, n_out=n_out),
-                     lambda: sptc_fused_ref(fop.values, fop.meta_words, x2d,
-                                            n_out=n_out, L=plan.L,
-                                            star_fast=fop.star_fast)),
-        }
+        rows2d = takes_rows2d(plan)
+        if rows2d:
+            # the engine's one launch on the haloed grid where it lies, with
+            # its own tables; the fused kernel is not on this spec's path
+            rop = rows2d_operand(plan, dev, f32)
+            rops = [(o.values, o.meta_words, o.star_fast) for o in rop.ops]
+            xs = x[None]
+            app = {"rows2d": (
+                lambda: sptc_ops.sptc_spmm_rows2d(rop, xs),
+                lambda: sptc_rows2d_ref(rops, rop.leads, xs, halo=rop.halo,
+                                        L=rop.L))}
+        else:
+            fop = sptc_ops.fused_operand(
+                sp.operands[0], sp.perm, plan.L,
+                star_fast="auto" if mode in ("single", "star-axis")
+                else False, dtype=f32, device=dev)
+            app = {"sptc": (
+                lambda: sptc_ops.sptc_spmm_fused(fop, x2d, n_out=n_out),
+                lambda: sptc_fused_ref(fop.values, fop.meta_words, x2d,
+                                       n_out=n_out, L=plan.L,
+                                       star_fast=fop.star_fast))}
         km = torch.as_tensor(
             StencilEngine(spec, "cuda_gemm", device=dev).plan_ir.kernel
             .matrices[0], dtype=f32, device=dev)
@@ -3161,11 +3236,13 @@ def main() -> int:
         # the one PyTorch call computing each kernel's function on its
         # inputs; the windows GEMM's is the dense product on the windows
         lib = {"sptc": lambda: F.conv2d(conv_in, conv_w),
+               "rows2d": lambda: F.conv2d(full_in, full_w),
                "gemm": lambda: torch.matmul(km, win),
                "direct": lambda: F.conv2d(full_in, full_w),
                "spmm": lambda: torch.matmul(dense, win_sw)}
-        lib_name = {"sptc": "F.conv2d", "gemm": "torch.matmul",
-                    "direct": "F.conv2d", "spmm": "torch.matmul"}
+        lib_name = {"sptc": "F.conv2d", "rows2d": "F.conv2d",
+                    "gemm": "torch.matmul", "direct": "F.conv2d",
+                    "spmm": "torch.matmul"}
         for k, (kern, plain) in app.items():
             got, want = kern(), plain()
             err = _err(got, want, TOL)
@@ -3185,6 +3262,12 @@ def main() -> int:
                     int(torch.count_nonzero(fop.values))
                 shape = f"x2d {tuple(x2d.shape)} n_out {n_out} L {plan.L} " \
                         f"star_fast {fop.star_fast}"
+            elif k == "rows2d":
+                nbytes = (x.numel() + pts) * 4
+                flops = 2.0 * -(-N_2D // plan.L) * N_2D * sum(
+                    int(torch.count_nonzero(o.values)) for o in rop.ops)
+                shape = f"xs {tuple(xs.shape)} L {plan.L} " \
+                        f"{len(rop.ops)} row ops (the engine's tables)"
             elif k == "gemm":
                 nbytes = (win.numel() + km.numel() + win.shape[0] * plan.L * c) * 4
                 flops = 2.0 * win.shape[0] * c * km.numel()
@@ -3217,6 +3300,8 @@ def main() -> int:
                   f"{100 * bound / ms:.0f}%) launches {launches[KERNEL_OF[k]]}"
                   f" | {shape} | card {smi}")
         del app, lib, win, win_sw, dense, x2d, conv_in
+        if rows2d:
+            del rop, rops, xs
         # end to end: engine GStencil/s for each backend, F.conv2d beside it
         conv_ms = _time_ms(lambda: F.conv2d(full_in, full_w), 10, hold=False)
         e2e = {}
@@ -3227,15 +3312,16 @@ def main() -> int:
             per_call = {n: f.launches - counters_before[n]
                         for n, f in counters.items()}
             e_ms = _time_ms(lambda: eng(x), 10, hold=False)
-            kern_ms = sum(per_call.get(f"cuda_{k}", 0) * line[k]["ms"]
+            kern_ms = sum(per_call.get(KERNEL_OF[k], 0) * line[k]["ms"]
                           for k in line) if b != "direct" else None
             e2e[b] = {"ms": e_ms, "gstencil_s": pts / e_ms / 1e6,
-                      "launches_per_call": per_call.get(b),
+                      "launches_per_call": (None if b == "direct" else
+                                            sum(per_call.values())),
                       "outside_kernel_share": (None if kern_ms is None else
                                                max(0.0, 1 - kern_ms / e_ms))}
-        if d == 2:
-            # the transposed copies cuda_sptc's engine makes: stencil axis
-            # last ("rows" ops, star axis 1) is a unit row stride
+        if d == 2 and not rows2d:
+            # the transposed copies cuda_sptc's per-RowOp loop makes:
+            # stencil axis last (star axis 1) is a unit row stride
             def copies():
                 for op in plan.decompose.ops:
                     if mode == "rows" or op.axis == 1:
@@ -3256,7 +3342,8 @@ def main() -> int:
             for b, v in e2e.items())
             + f" | F.conv2d={pts / conv_ms / 1e6:.2f} GStencil/s "
               f"({conv_ms:.3f} ms)"
-            + ("" if d == 1 else f" | cuda_sptc transpose copies "
+            + ("" if "transpose_copy_ms" not in e2e["cuda_sptc"] else
+               f" | cuda_sptc transpose copies "
                f"{e2e['cuda_sptc']['transpose_copy_ms']:.3f} ms "
                f"({100 * e2e['cuda_sptc']['transpose_copy_share']:.0f}% of "
                f"the call)") + f" | card {smi}")
@@ -3309,6 +3396,7 @@ def main() -> int:
                         + halo["launches"][b])
     # and phase vet's audited calls
     launches["cuda_sptc"] += vet["launches"]["sptc_spmm_fused"]
+    launches["sptc_rows2d"] += vet["launches"]["sptc_spmm_rows2d"]
     launches["cuda_gemm"] += vet["launches"]["windows_gemm"]
     launches["sptc_spmm"] += vet["launches"]["sptc_spmm_windows"]
 
@@ -3359,6 +3447,7 @@ def main() -> int:
 
     # -- phase examples: examples/*_torch.py on the card ---------------------
     wrappers = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
+                "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d,
                 "sptc_spmm": sptc_ops.sptc_spmm_windows,
@@ -3368,25 +3457,32 @@ def main() -> int:
         launches[k] += n
 
     # -- phase 5: summary -----------------------------------------------------
-    canon = "box-2d1r"          # the canonical shape of the kernels line
+    # the canonical shape of the kernels line: box-2d1r, and for the fused
+    # kernel, which a 2-D box no longer runs, the star at its size
+    canon = dict.fromkeys(KERNEL_OF, "box-2d1r")
+    canon["sptc"] = "star-2d1r"
     meta = {"sptc": ("src/repro_torch/kernels/csrc/sptc_fused.cu",
                      "src/repro/kernels/sptc_spmm/kernel.py:112"),
+            # one launch for the R calls of the reference's fused kernel
+            "rows2d": ("src/repro_torch/kernels/csrc/sptc_rows2d.cu",
+                       "src/repro/kernels/sptc_spmm/kernel.py:112"),
             "gemm": ("src/repro_torch/kernels/csrc/windows_gemm.cu",
                      "src/repro/kernels/stencil_gemm/kernel.py:24"),
             "direct": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
                        "src/repro/kernels/stencil_direct/kernel.py:28"),
             "spmm": ("src/repro_torch/kernels/csrc/sptc_spmm.cu",
                      "src/repro/kernels/sptc_spmm/kernel.py:56")}
-    timed = {KERNEL_OF[k]: (src, repl, rows[canon][k], f"{canon}: ")
+    timed = {KERNEL_OF[k]: (src, repl, rows[canon[k]][k], f"{canon[k]}: ")
              for k, (src, repl) in meta.items()}
     timed["conv1d_causal"] = ("src/repro_torch/kernels/csrc/conv1d_causal.cu",
                               "src/repro/kernels/conv1d/kernel.py:27",
                               conv_rows["serve"], f"{ARCH} prefill: ")
     # the worst share of bound over the paper suite of each stencil kernel
-    # and of the v1 SpMM (phase 4's rows)
+    # and of the v1 SpMM (phase 4's rows: the specs each kernel runs)
     worst_share = {}
     for k in meta:
-        spec, row = min(((sp, rows[sp][k]) for sp in (s.name for s in suite)),
+        spec, row = min(((sp, rows[sp][k]) for sp in (s.name for s in suite)
+                         if k in rows[sp]),
                         key=lambda it: it[1]["bound_ms"] / it[1]["ms"])
         worst_share[KERNEL_OF[k]] = {"spec": spec, "ms": row["ms"],
                                      "bound_ms": row["bound_ms"],

@@ -31,10 +31,23 @@ k-step engine — and the output is the (N1, ..., Nd) interior update.
 Batches: every emission takes a leading batch axis, ``(B, *spatial)``, and
 ``__call__`` is the batch of one.  The constant-coefficient row-op paths
 (``single``, ``star-axis``, ``rows``) fold the batch axis into the column
-axis of each 1-D application, and ``cuda_direct`` runs 1-D and 2-D batches
-on its kernel's batch axis: a super-batch costs as many kernel launches as
-one job.  Fused rows, variable coefficients and 3-D ``cuda_direct`` loop
-over the jobs of a batch.
+axis of each 1-D application, ``cuda_direct`` runs 1-D and 2-D batches on
+its kernel's batch axis, and a 2-D ``rows`` plan on ``cuda_sptc`` runs the
+whole batch through one ``sptc_spmm_rows2d`` launch: a super-batch costs as
+many kernel launches as one job.  Fused rows, variable coefficients and
+3-D ``cuda_direct`` loop over the jobs of a batch.
+
+Copies on ``cuda_sptc``: a 2-D ``rows`` plan (a box, or a star without its
+fast path) whose L and row ops the rows kernel holds
+(:func:`takes_rows2d`: even L <= 16) reads the haloed batch where it lies,
+with no copy, no zero fill and no add: one launch sums every row op on
+chip (only an input whose last axis is not of unit stride, such as a
+transposed view, is copied once first).  The per-RowOp loop runs
+everything else, a 2-D ``rows`` plan with a larger L among them: each 1-D
+application along the last axis copies its transposed slice to a unit
+column stride, a ``star-axis`` application along the leading axis copies
+only for a batch of more than one grid, and the R results are added into
+a zero-filled accumulator.
 
 Spans (``kernels/common.py::region``, on while a profiler is active):
 ``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``
@@ -48,7 +61,7 @@ raises instead of silently running on the CPU.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,13 +73,17 @@ from repro_torch.core.stencil import StencilSpec
 from repro_torch.core.transform import default_l, kernel_matrix, lower_spec
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.common import region
-from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, fused_operand,
+from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, RowsOperand,
+                                               fused_operand, rows2d_holds,
+                                               rows_operand,
                                                sptc_spmm_fused,
+                                               sptc_spmm_rows2d,
                                                sptc_spmm_windows)
 from repro_torch.kernels.stencil_gemm.ops import windows_gemm
 
 __all__ = ["BACKENDS", "StencilEngine", "apply_stencil", "apply_1d",
-           "apply_sptc_v1", "resolve_device", "tile_windows"]
+           "apply_sptc_v1", "kernel_launches", "resolve_device",
+           "rows2d_operand", "takes_rows2d", "tile_windows"]
 
 Tensor = torch.Tensor
 ApplyFn = Callable[[Tensor], Tensor]
@@ -165,7 +182,10 @@ def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int) -> Tensor:
     """Fused: ONE kernel — window read, in-kernel swap + segment gather from
     the packed meta words, dot.  Nothing is windowed, permuted or gathered
     outside it; the kernel takes any row stride, so only a transposed view
-    (unit row stride) is copied first."""
+    (unit row stride) is copied first: the per-RowOp loop's applications
+    along the last axis of a 2-D or 3-D grid, and along the leading axis of
+    a batch of several 2-D grids.  A 2-D ``rows`` plan the rows kernel holds
+    never comes here (:func:`_emit_rows2d`)."""
     if x2d.shape[1] > 1 and x2d.stride(1) != 1:
         x2d = x2d.contiguous()
     return sptc_spmm_fused(op, x2d, n_out=n_out)
@@ -237,14 +257,22 @@ def _operand_fn(plan: LoweredPlan, i: int, device: torch.device,
                                  tensor(gather.slots[i], dtype=torch.int64),
                                  L=L)
     if backend == "cuda_sptc":
-        # the metadata-free banded path is the star decomposition's fast
-        # path; box "rows" ops keep the faithful metadata decode
-        star = plan.decompose.mode in ("single", "star-axis")
-        fop = fused_operand(sp.operands[i], sp.perm, L,
-                            star_fast="auto" if star else False,
-                            dtype=dtype, device=device)
-        return functools.partial(_op_cuda_sptc, fop)
+        return functools.partial(_op_cuda_sptc,
+                                 _fused_operand(plan, i, device, dtype))
     raise ValueError(f"unknown 1-D backend {backend}")
+
+
+def _fused_operand(plan: LoweredPlan, i: int, device: torch.device,
+                   dtype: torch.dtype) -> FusedOperand:
+    """The fused kernels' tables of operand ``i`` of a cuda_sptc plan."""
+    sp = plan.sparsify
+    assert sp is not None
+    # the metadata-free banded path is the star decomposition's fast path;
+    # box "rows" ops keep the faithful metadata decode
+    star = plan.decompose.mode in ("single", "star-axis")
+    return fused_operand(sp.operands[i], sp.perm, plan.L,
+                         star_fast="auto" if star else False, dtype=dtype,
+                         device=device)
 
 
 def _apply_op(fn: OpFn, x: Tensor, n_out: int, axis: int) -> Tensor:
@@ -278,8 +306,10 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
                 operand_fn: Callable[..., OpFn] = _operand_fn) -> ApplyFn:
     """Constant-coefficient single/star-axis/rows emission on ``(B,
     *spatial)`` — shape-generic; one 1-D application per RowOp for the
-    whole batch.  ``operand_fn`` binds each operand's 1-D application (the
-    verifier passes a faulty one to build its controls)."""
+    whole batch (the per-RowOp loop; a plan :func:`takes_rows2d` takes
+    never comes here from ``emit``).  ``operand_fn`` binds each operand's
+    1-D application (the verifier passes a faulty one to build its
+    controls)."""
     r, d = plan.spec.radius, plan.spec.ndim
     dec = plan.decompose
     mode = dec.mode
@@ -300,6 +330,64 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
             sl, axis = _op_slice(mode, op, out_shape, r, d, lead=1)
             acc = acc + _apply_op(f, xs[sl], out_shape[axis - 1], axis)
         return acc
+    return fn
+
+
+def takes_rows2d(plan: LoweredPlan) -> bool:
+    """Whether the plan's row ops run as ONE ``sptc_spmm_rows2d`` launch: a
+    2-D ``rows`` plan on ``cuda_sptc`` whose L and row ops the rows kernel
+    holds.  Every other plan keeps its emission."""
+    return (plan.emit.backend == "cuda_sptc"
+            and plan.decompose.mode == "rows" and plan.spec.ndim == 2
+            and plan.emit.coefficient_mode == "const"
+            and rows2d_holds(plan.L, [op.lead[0] for op in plan.decompose.ops],
+                             2 * plan.spec.radius))
+
+
+#: the wrapper each matrix backend launches once per RowOp
+_ROW_OP_KERNELS = {"cuda_sptc": "sptc_spmm_fused", "cuda_gemm": "windows_gemm"}
+
+
+def kernel_launches(plan: LoweredPlan) -> Dict[str, int]:
+    """The kernel wrappers one call of a one-step, constant-coefficient
+    1-D or 2-D engine on ``plan`` launches, by name (each wrapper's
+    ``__name__`` and region), whatever its batch: ``sptc_spmm_rows2d``
+    once for a plan :func:`takes_rows2d` takes, ``stencil2d`` once on
+    ``cuda_direct``, a matrix kernel once per RowOp; none on a plain
+    backend."""
+    backend = plan.emit.backend
+    if takes_rows2d(plan):
+        return {"sptc_spmm_rows2d": 1}
+    if backend == "cuda_direct":
+        return {"stencil2d": 1}
+    if backend in _ROW_OP_KERNELS:
+        return {_ROW_OP_KERNELS[backend]: len(plan.decompose.ops)}
+    return {}
+
+
+def rows2d_operand(plan: LoweredPlan, device: torch.device,
+                   dtype: torch.dtype) -> RowsOperand:
+    """The rows kernel's tables of a plan :func:`takes_rows2d` takes: its
+    row ops' fused tables, stacked, with each op's row offset."""
+    ops = plan.decompose.ops
+    return rows_operand([_fused_operand(plan, op.operand, device, dtype)
+                         for op in ops], [op.lead[0] for op in ops],
+                        2 * plan.spec.radius)
+
+
+def _emit_rows2d(plan: LoweredPlan, device: torch.device,
+                 dtype: torch.dtype) -> ApplyFn:
+    """Every row op of a 2-D ``rows`` plan in one launch on ``(B, H + 2r,
+    W + 2r)``: the batch is read where it lies and the ``(B, H, W)``
+    interior written once, the R row ops summed on chip
+    (``kernels/csrc/sptc_rows2d.cu``)."""
+    rop = rows2d_operand(plan, device, dtype)
+
+    def fn(xs: Tensor) -> Tensor:
+        # the kernel takes any batch and row stride, not a column stride
+        if xs.shape[2] > 1 and xs.stride(2) != 1:
+            xs = xs.contiguous()
+        return sptc_spmm_rows2d(rop, xs)
     return fn
 
 
@@ -432,6 +520,8 @@ def _emit_step(plan: LoweredPlan, device: torch.device,
         return _per_job(_emit_var(plan, device, dtype))
     if plan.decompose.mode == "fused-rows":
         return _per_job(_emit_fused_2d(plan, device, dtype))
+    if takes_rows2d(plan):
+        return _emit_rows2d(plan, device, dtype)
     return _emit_const(plan, device, dtype)
 
 

@@ -51,6 +51,8 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES: Dict[str, List[type]] = {
     "spider_sptc_fused": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                           _I, _I, _P],
+    "spider_sptc_rows2d": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                           _I64, _I64, _I64, _I64, _I64, _I, _I, _P],
     "spider_windows_gemm": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "spider_stencil2d": [_P, _P, _P, _I64, _I64, _I, _I64, _I64, _I64, _I64,
                          _I64, _I, _P],

@@ -1,9 +1,13 @@
-from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, fused_operand,
+from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, RowsOperand,
+                                               fused_operand, rows_operand,
                                                sptc_spmm, sptc_spmm_fused,
+                                               sptc_spmm_rows2d,
                                                sptc_spmm_windows)
-from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref, sptc_spmm_ref,
+from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                               sptc_rows2d_ref, sptc_spmm_ref,
                                                sptc_spmm_windows_ref)
 
-__all__ = ["FusedOperand", "fused_operand", "sptc_spmm", "sptc_spmm_fused",
-           "sptc_spmm_windows", "sptc_fused_ref", "sptc_spmm_ref",
-           "sptc_spmm_windows_ref"]
+__all__ = ["FusedOperand", "RowsOperand", "fused_operand", "rows_operand",
+           "sptc_spmm", "sptc_spmm_fused", "sptc_spmm_rows2d",
+           "sptc_spmm_windows", "sptc_fused_ref", "sptc_rows2d_ref",
+           "sptc_spmm_ref", "sptc_spmm_windows_ref"]

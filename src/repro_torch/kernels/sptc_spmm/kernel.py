@@ -1,7 +1,9 @@
-"""Launchers of the two SpTC CUDA kernels.
+"""Launchers of the SpTC CUDA kernels.
 
 ``csrc/sptc_fused.cu`` replaces ``repro/kernels/sptc_spmm/kernel.py::
-_fused_kernel``; ``csrc/sptc_spmm.cu`` replaces the v1 ``_sptc_kernel``.
+_fused_kernel``; ``csrc/sptc_spmm.cu`` replaces the v1 ``_sptc_kernel``;
+``csrc/sptc_rows2d.cu`` runs every row op of a 2-D "rows" plan in one
+launch, where the reference runs ``_fused_kernel`` once per row op.
 The callers (:mod:`repro_torch.kernels.sptc_spmm.ops`) check the arguments
 and allocate the outputs; this module only launches.
 """
@@ -44,6 +46,27 @@ def sptc_fused_launch(x2d: torch.Tensor, y: torch.Tensor,
             n_out, L, frags.ksteps, 0 if tf32 else 1,
             DTYPE_CODES[x2d.dtype], stream_ptr(x2d.device))
     check(status, "spider_sptc_fused")
+
+
+def sptc_rows2d_launch(xs: torch.Tensor, y: torch.Tensor,
+                       frags: "Fragments", *, halo: int, L: int,
+                       lead_bits: int, tf32: bool) -> None:
+    """Launch on the current stream; returns without synchronising.
+
+    ``xs`` (B, H + halo, W + halo) with a unit column stride, ``y`` (B, H,
+    W) contiguous; ``frags`` the row ops' tables of the route stacked on
+    the leading axis; op u's row offset in bits [4u, 4u + 4) of
+    ``lead_bits``.
+    """
+    lib = library()
+    b, h, w = y.shape
+    with torch.cuda.device(xs.device):
+        status = lib.spider_sptc_rows2d(
+            xs.data_ptr(), y.data_ptr(), frags.a.data_ptr(),
+            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1), halo, L,
+            frags.a.shape[0], lead_bits, frags.ksteps, 0 if tf32 else 1,
+            DTYPE_CODES[xs.dtype], stream_ptr(xs.device))
+    check(status, "spider_sptc_rows2d")
 
 
 def sptc_spmm_launch(values: torch.Tensor, meta: torch.Tensor,

@@ -1,16 +1,19 @@
-"""Public wrappers of the two SpTC kernels and the tables they read.
+"""Public wrappers of the SpTC kernels and the tables they read.
 
 :func:`fused_operand` turns a compressed operand into device tables once
 (the engine calls it in its constructor); :func:`sptc_spmm_fused` applies
-them.  :func:`sptc_spmm` / :func:`sptc_spmm_windows` are the v1 compressed
-SpMM over a pre-swapped RHS.  On a CUDA tensor a wrapper launches its
+them along the rows of a 2-D input.  :func:`rows_operand` stacks the
+operands of a 2-D "rows" decomposition, and :func:`sptc_spmm_rows2d`
+applies all of them to a batch of haloed grids in one launch.
+:func:`sptc_spmm` / :func:`sptc_spmm_windows` are the v1 compressed SpMM
+over a pre-swapped RHS.  On a CUDA tensor a wrapper launches its
 kernel or raises; it takes the plain torch version only for a tensor that
 lies on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Union
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,8 +23,10 @@ from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
 from repro_torch.kernels.common import region
 from repro_torch.kernels.sptc_spmm import fragments as fr
 from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
+                                                  sptc_rows2d_launch,
                                                   sptc_spmm_launch)
 from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
+                                               sptc_rows2d_ref,
                                                sptc_spmm_windows_ref)
 
 if TYPE_CHECKING:
@@ -156,6 +161,128 @@ def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
 
 
 sptc_spmm_fused.launches = 0    # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# every row op of a 2-D "rows" decomposition in one launch
+# ---------------------------------------------------------------------------
+
+#: the rows kernel's limits: one 16-row M block per operand, and row
+#: offsets of 4 bits
+ROWS2D_MAX_L = 16
+ROWS2D_MAX_OPS = 16
+ROWS2D_MAX_HALO = 15
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsOperand:
+    """Device tables of the R row ops of a 2-D "rows" decomposition.
+
+    ``ops``    each op's :class:`FusedOperand` (the plain version reads
+               their ``values`` and ``meta_words``);
+    ``leads``  op u reads the input rows shifted by ``leads[u]``;
+    ``halo``   2r: the input carries ``halo`` more rows and columns than
+               the output;
+    ``tf32``, ``bf16``  the ops' tables of each route stacked on the
+               leading axis, (R, KS, 2, 32) and (R, KS, 32).
+    """
+
+    ops: Tuple[FusedOperand, ...]
+    leads: Tuple[int, ...]
+    halo: int
+    tf32: Optional[fr.Fragments]
+    bf16: fr.Fragments
+
+    @property
+    def L(self) -> int:
+        return self.ops[0].values.shape[0]
+
+
+def rows2d_holds(L: int, leads: Sequence[int], halo: int) -> bool:
+    """Whether :func:`sptc_spmm_rows2d` takes R = ``len(leads)`` row ops of
+    width ``L`` over a ``halo``-row halo."""
+    return (2 <= L <= ROWS2D_MAX_L and L % 2 == 0
+            and 1 <= len(leads) <= ROWS2D_MAX_OPS
+            and 0 <= halo <= ROWS2D_MAX_HALO
+            and all(0 <= u <= halo for u in leads))
+
+
+def rows_operand(ops: Sequence[FusedOperand], leads: Sequence[int],
+                 halo: int) -> RowsOperand:
+    """Stack the row ops' tables for :func:`sptc_spmm_rows2d` (on their
+    device, once)."""
+    ops, leads = tuple(ops), tuple(int(u) for u in leads)
+    if len(ops) != len(leads):
+        raise ValueError(f"{len(ops)} operands for {len(leads)} leads")
+    L = ops[0].values.shape[0] if ops else 0
+    if not rows2d_holds(L, leads, halo):
+        raise ValueError(f"sptc_spmm_rows2d takes even L <= {ROWS2D_MAX_L}, "
+                         f"1-{ROWS2D_MAX_OPS} row ops and leads within a "
+                         f"halo <= {ROWS2D_MAX_HALO}; got L={L}, "
+                         f"leads={leads}, halo={halo}")
+    first = ops[0].values
+    if any(o.values.shape[0] != L or o.values.dtype != first.dtype
+           or o.values.device != first.device for o in ops):
+        raise ValueError("row operands differ in L, dtype or device")
+
+    def stack(frags: Sequence[fr.Fragments]) -> fr.Fragments:
+        return fr.Fragments(a=torch.cat([f.a for f in frags]),
+                            e=torch.cat([f.e for f in frags]),
+                            k_step=frags[0].k_step)
+
+    tf32 = (stack([o.tf32 for o in ops])  # type: ignore[misc]
+            if all(o.tf32 is not None for o in ops) else None)
+    return RowsOperand(ops=ops, leads=leads, halo=int(halo), tf32=tf32,
+                       bf16=stack([o.bf16 for o in ops]))
+
+
+def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
+    """Every row op at once: ``y[b, i, j] = sum_u op_u(xs[b, i + leads[u],
+    :])[j]``.
+
+    ``xs`` is the raw (B, H + halo, W + halo) batch of haloed grids, any
+    batch and row stride, unit column stride: read where it lies.  Returns
+    the contiguous (B, H, W) interior in ``xs.dtype``, the R applications
+    summed in float32, in order, and rounded once: in float32 the sums of
+    :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
+    """
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (B, H + halo, W + halo), got shape "
+                         f"{tuple(xs.shape)}")
+    if xs.dtype not in DTYPE_CODES:
+        raise TypeError(f"xs dtype {xs.dtype} not in {tuple(DTYPE_CODES)}")
+    if rop.ops[0].values.dtype != xs.dtype:
+        raise TypeError(f"operand dtype {rop.ops[0].values.dtype} != xs dtype "
+                        f"{xs.dtype}; build the operands in the input dtype")
+    if rop.ops[0].values.device != xs.device:
+        raise ValueError("operand tables and xs lie on different devices")
+    if xs.shape[2] > 1 and xs.stride(2) != 1:
+        raise ValueError("xs needs a unit column stride")
+    b, h, w = xs.shape[0], xs.shape[1] - rop.halo, xs.shape[2] - rop.halo
+    if h < 0 or w < 0:
+        raise ValueError(f"xs of shape {tuple(xs.shape)} is smaller than "
+                         f"its halo of {rop.halo}")
+    L = rop.L
+    if xs.device.type == "cpu":
+        with region("sptc_spmm_rows2d"):
+            return sptc_rows2d_ref(
+                [(o.values, o.meta_words, o.star_fast) for o in rop.ops],
+                rop.leads, xs, halo=rop.halo, L=L)
+    if xs.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xs.device}")
+    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
+    if y.numel() == 0:
+        return y
+    tf32 = xs.dtype == torch.float32
+    lead_bits = sum(u << (4 * i) for i, u in enumerate(rop.leads))
+    with region("sptc_spmm_rows2d"):
+        sptc_rows2d_launch(xs, y, rop.tf32 if tf32 else rop.bf16,
+                           halo=rop.halo, L=L, lead_bits=lead_bits, tf32=tf32)
+    sptc_spmm_rows2d.launches += 1
+    return y
+
+
+sptc_spmm_rows2d.launches = 0    # type: ignore[attr-defined]
 
 
 # ---------------------------------------------------------------------------

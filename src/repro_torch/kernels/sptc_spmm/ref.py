@@ -4,6 +4,8 @@
 own steps with torch ops — unpack the 2-bit metadata from the packed words,
 apply the closed-form strided swap, read the window rows, multiply-add in
 float32 — so the packing is tested too, not only the stencil it encodes.
+:func:`sptc_rows2d_ref` (``csrc/sptc_rows2d.cu``) sums those steps over the
+row ops of a 2-D "rows" decomposition.
 
 :func:`sptc_spmm_ref` / :func:`sptc_spmm_windows_ref` (``csrc/sptc_spmm.cu``,
 the v1 compressed SpMM) are ``core/sptc.py``'s ``sptc_matmul``, the second
@@ -11,7 +13,7 @@ written out over the tile axis.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +80,35 @@ def sptc_fused_ref(values: torch.Tensor, meta_words: torch.Tensor,
     type before the float32 multiply-add.  Returns (n_out, C) in
     ``x2d.dtype``.
     """
+    return _fused_sums(values, meta_words, x2d, n_out=n_out, L=L,
+                       star_fast=star_fast,
+                       compute_dtype=compute_dtype).to(x2d.dtype)
+
+
+def sptc_rows2d_ref(ops: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
+                    leads: Sequence[int], xs: torch.Tensor, *, halo: int,
+                    L: int) -> torch.Tensor:
+    """y[b, i, j] = sum_u (op u along the last axis of rows i + leads[u]).
+
+    ``ops`` holds each row op's (values, meta_words, star_fast), as
+    :func:`sptc_fused_ref` reads them; ``xs`` is the raw (B, H + halo,
+    W + halo) grid.  The R applications are summed in float32, in order,
+    and rounded once: (B, H, W) in ``xs.dtype``.
+    """
+    b, hin, win = xs.shape
+    h, w = hin - halo, win - halo
+    acc = torch.zeros((w, b * h), dtype=torch.float32, device=xs.device)
+    for (values, meta_words, star_fast), u in zip(ops, leads):
+        x2d = xs[:, u:u + h, :].permute(2, 0, 1).reshape(win, b * h)
+        acc += _fused_sums(values, meta_words, x2d, n_out=w, L=L,
+                           star_fast=star_fast)
+    return acc.reshape(w, b, h).permute(1, 2, 0).to(xs.dtype).contiguous()
+
+
+def _fused_sums(values: torch.Tensor, meta_words: torch.Tensor,
+                x2d: torch.Tensor, *, n_out: int, L: int, star_fast: bool,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`sptc_fused_ref`'s float32 sums, before the final rounding."""
     kh = values.shape[1]
     src = window_sources(meta_words, L, kh, star_fast)
     tiles = -(-n_out // L)
@@ -92,5 +123,4 @@ def sptc_fused_ref(values: torch.Tensor, meta_words: torch.Tensor,
         if compute_dtype is not None:
             xj = xj.to(compute_dtype)
         acc += vals[:, j].float() * xj.float()
-    y = acc.to(x2d.dtype).permute(0, 2, 1).reshape(tiles * L, c)
-    return y[:n_out]
+    return acc.permute(0, 2, 1).reshape(tiles * L, c)[:n_out]

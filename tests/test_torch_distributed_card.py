@@ -47,11 +47,13 @@ def test_box_2d1r_cuda_sptc_step_on_a_2x2_mesh(cuda_device):
     u = torch.randn((517, 389), generator=g, device=cuda_device)
     direct = StencilEngine(spec, "direct", device=cuda_device)
     sptc_ops.sptc_spmm_fused.launches = 0
+    sptc_ops.sptc_spmm_rows2d.launches = 0
     got = eng.step(u)
     torch.cuda.synchronize()
-    rows = len(eng.plan_ir.decompose.ops)
-    # one batched interior call and two rims per partitioned axis
-    assert sptc_ops.sptc_spmm_fused.launches == (1 + 2 * 2) * rows
+    # one batched interior call and two rims per partitioned axis, each one
+    # rows-kernel launch for all the box's row ops
+    assert sptc_ops.sptc_spmm_rows2d.launches == 1 + 2 * 2
+    assert sptc_ops.sptc_spmm_fused.launches == 0
     assert eng.transport.calls == 4
     _close(got, direct(F.pad(u, (1,) * 4)))
     _close(eng(F.pad(u, (1,) * 4)), direct(F.pad(u, (1,) * 4)))

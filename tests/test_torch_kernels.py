@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core import sparsify
 from repro_torch.core.engine import StencilEngine, apply_stencil
-from repro_torch.core.stencil import make_stencil
+from repro_torch.core.stencil import make_stencil, paper_suite
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sptc_spmm import ops as sptc_ops
 from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
@@ -28,6 +28,7 @@ from repro_torch.kernels.stencil_direct import ops as direct_ops
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
 from repro_torch.kernels.stencil_gemm import ops as gemm_ops
 from repro_torch.kernels.stencil_gemm.ref import windows_gemm_ref
+from repro_torch.tuner.search import l_candidates
 
 F32_TOL = dict(rtol=3e-5, atol=3e-5)      # f32: summation order only
 #: bf16 compute rounds window and values to 8 mantissa bits in both
@@ -330,6 +331,149 @@ def test_applicable_backends_on_cpu():
         ("direct", "gemm", "sptc")
     with pytest.raises(ValueError, match="cuda_direct"):
         dispatch.build(spec, "cuda_gemm", 4, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# a 2-D box on cuda_sptc: every row op in one sptc_spmm_rows2d call
+# ---------------------------------------------------------------------------
+
+#: (r, L): the paper suite's 2-D boxes at every L the tuner offers
+ROWS2D_CASES = tuple((r, L) for r in (1, 2, 3) for L in l_candidates(r))
+#: (B, H, W, layout): H and W no multiple of L or 8 (rows of W + 2r
+#: elements, not 16-byte aligned), H < 8, a strided view of a larger batch,
+#: and a contiguous batch whose data starts one element past the allocation
+ROWS2D_SHAPES = ((1, 13, 37, "contiguous"), (3, 5, 70, "contiguous"),
+                 (3, 19, 29, "strided"), (1, 9, 44, "offset"))
+#: a transposed view (no unit column stride): the engine copies it first,
+#: as the wrapper takes a unit column stride only
+ROWS2D_TRANSPOSED = ((1, 11, 23, "transposed"), (2, 7, 16, "transposed"))
+
+
+def _rows2d_input(r, b, h, w, layout, dt, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    hh, ww = h + 2 * r, w + 2 * r
+    if layout == "strided":
+        big = torch.randn(b, hh + 3, ww + 5, generator=g).to(dt).to(device)
+        return big[:, 1:1 + hh, 3:3 + ww]
+    if layout == "offset":
+        big = torch.randn(b * hh * ww + 1, generator=g).to(dt).to(device)
+        return big[1:].view(b, hh, ww)
+    if layout == "transposed":
+        big = torch.randn(b, ww, hh, generator=g).to(dt).to(device)
+        return big.transpose(1, 2)
+    return torch.randn(b, hh, ww, generator=g).to(dt).to(device)
+
+
+def _rows_operand(eng, device, dt):
+    """The rows kernel's tables of a 2-D box engine's plan."""
+    from repro_torch.core.engine import rows2d_operand
+    return rows2d_operand(eng.plan_ir, device, dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,layout", ROWS2D_SHAPES + ROWS2D_TRANSPOSED)
+@pytest.mark.parametrize("r,L", ROWS2D_CASES)
+def test_rows2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
+                                                   dtype):
+    """The box's cuda_sptc engine on the CPU runs its row ops as one
+    ``sptc_spmm_rows2d`` region (the plain version) and no
+    ``sptc_spmm_fused`` one, and equals the per-RowOp loop it replaces and
+    the direct engine: in float32 the same sums in the same order as the
+    loop, bit for bit."""
+    from repro_torch.core.engine import _emit_const, takes_rows2d
+    dt = getattr(torch, dtype)
+    cpu = torch.device("cpu")
+    spec = make_stencil("box", 2, r, seed=r)
+    eng = StencilEngine(spec, "cuda_sptc", L=L, device="cpu", dtype=dt)
+    assert takes_rows2d(eng.plan_ir)
+    xs = _rows2d_input(r, b, h, w, layout, dt, cpu)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = eng.apply_batched(xs) if b > 1 else eng(xs[0])[None]
+    names = [e.name for e in prof.events()]
+    assert names.count("sptc_spmm_rows2d") == 1
+    assert "sptc_spmm_fused" not in names
+    assert got.shape == (b, h, w) and got.dtype == dt
+    unit = xs if xs.stride(2) == 1 else xs.contiguous()
+    assert torch.equal(got, sptc_ops.sptc_spmm_rows2d(
+        _rows_operand(eng, cpu, dt), unit))
+    loop = _emit_const(eng.plan_ir, cpu, dt)(xs)
+    direct = torch.stack([StencilEngine(spec, "direct", device="cpu",
+                                        dtype=dt)(x) for x in xs])
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(loop), **tol)
+    np.testing.assert_allclose(_np(got), _np(direct), **tol)
+    if dt == torch.float32:
+        assert torch.equal(got, loop)
+
+
+@pytest.mark.parametrize("shape,ndim,r,dims", [("box", 1, 2, (70,)),
+                                               ("star", 2, 1, (17, 21)),
+                                               ("box", 3, 1, (6, 7, 9))])
+def test_other_sptc_engines_keep_a_fused_region_per_row_op(shape, ndim, r,
+                                                           dims):
+    """The 1-D (``single``), star (``star-axis``) and 3-D (``rows``)
+    engines on cuda_sptc keep one ``sptc_spmm_fused`` region per row op."""
+    from repro_torch.core.engine import takes_rows2d
+    spec = make_stencil(shape, ndim, r, seed=2)
+    eng = StencilEngine(spec, "cuda_sptc", device="cpu")
+    assert not takes_rows2d(eng.plan_ir)
+    x = torch.randn(tuple(s + 2 * r for s in dims))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = eng(x)
+    names = [e.name for e in prof.events()]
+    assert names.count("sptc_spmm_fused") == len(eng.plan_ir.decompose.ops)
+    assert "sptc_spmm_rows2d" not in names
+    np.testing.assert_allclose(
+        _np(got), _np(StencilEngine(spec, "direct", device="cpu")(x)),
+        **F32_TOL)
+
+
+@pytest.mark.parametrize("backend", dispatch.CUDA_BACKENDS)
+@pytest.mark.parametrize("spec", paper_suite(), ids=lambda s: s.name)
+def test_kernel_launches_name_each_wrapper_a_call_enters(spec, backend):
+    """``engine.kernel_launches`` is what a call does: a batch of three on
+    the CPU enters each wrapper's region as often as it says, and no
+    other."""
+    from collections import Counter
+
+    from repro_torch.core.engine import kernel_launches
+    from repro_torch.kernels.common import KERNEL_REGIONS
+    eng = StencilEngine(spec, backend, device="cpu")
+    dims = (50,) if spec.ndim == 1 else (11, 14)
+    xs = torch.randn((3,) + tuple(s + 2 * spec.radius for s in dims))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.apply_batched(xs)
+    entered = Counter(e.name for e in prof.events()
+                      if e.name in KERNEL_REGIONS)
+    assert dict(entered) == kernel_launches(eng.plan_ir)
+
+
+def test_sptc_spmm_rows2d_wrapper_checks():
+    spec = make_stencil("box", 2, 1, seed=1)
+    eng = StencilEngine(spec, "cuda_sptc", device="cpu")
+    rop = _rows_operand(eng, torch.device("cpu"), torch.float32)
+    assert (rop.L, rop.leads, rop.halo) == (4, (0, 1, 2), 2)
+    assert sptc_ops.rows2d_holds(16, (0, 1, 2, 3, 4, 5, 6), 6)
+    assert not sptc_ops.rows2d_holds(18, (0, 1, 2), 2)      # one M block
+    assert not sptc_ops.rows2d_holds(4, (0, 3), 2)          # lead past halo
+    with pytest.raises(ValueError, match="operands for"):
+        sptc_ops.rows_operand(rop.ops, (0, 1), 2)
+    with pytest.raises(ValueError, match="even L"):
+        sptc_ops.rows_operand(rop.ops, (0, 1, 3), 2)
+    x = torch.randn(2, 10, 12)
+    with pytest.raises(ValueError, match="B, H"):
+        sptc_ops.sptc_spmm_rows2d(rop, x[0])
+    with pytest.raises(TypeError, match="dtype"):
+        sptc_ops.sptc_spmm_rows2d(rop, x.double())
+    with pytest.raises(TypeError, match="operand dtype"):
+        sptc_ops.sptc_spmm_rows2d(rop, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="unit column stride"):
+        sptc_ops.sptc_spmm_rows2d(rop, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="smaller than its halo"):
+        sptc_ops.sptc_spmm_rows2d(rop, x[:, :1])
 
 
 # ---------------------------------------------------------------------------
@@ -642,3 +786,40 @@ def test_cuda_apply_sptc_v1_matches_direct(cuda_device, shape, ndim, r):
     want = StencilEngine(spec, "direct")(x)
     torch.cuda.synchronize()
     _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,layout",
+                         ROWS2D_SHAPES + ROWS2D_TRANSPOSED
+                         + ((2, 130, 1001, "contiguous"),))
+@pytest.mark.parametrize("r,L", ROWS2D_CASES)
+def test_cuda_sptc_rows2d_matches_plain(cuda_device, r, L, b, h, w, layout,
+                                        dtype):
+    """The rows kernel against its plain version: odd shapes, H < 8,
+    strided and offset views (every copy width), several runs, and a
+    transposed view through the engine (which copies it first); in float32
+    bit for bit the per-RowOp loop it replaces."""
+    from repro_torch.kernels.sptc_spmm.ref import sptc_rows2d_ref
+    dt = getattr(torch, dtype)
+    spec = make_stencil("box", 2, r, seed=r)
+    eng = StencilEngine(spec, "cuda_sptc", L=L, device=cuda_device, dtype=dt)
+    rop = _rows_operand(eng, cuda_device, dt)
+    xs = _rows2d_input(r, b, h, w, layout, dt, cuda_device)
+    unit = xs if xs.stride(2) == 1 else xs.contiguous()
+    before = sptc_ops.sptc_spmm_rows2d.launches
+    got = sptc_ops.sptc_spmm_rows2d(rop, unit)
+    assert sptc_ops.sptc_spmm_rows2d.launches == before + 1
+    want = sptc_rows2d_ref([(o.values, o.meta_words, o.star_fast)
+                            for o in rop.ops], rop.leads, xs, halo=rop.halo,
+                           L=rop.L)
+    torch.cuda.synchronize()
+    _close(got, want, dt)
+    _close(eng.apply_batched(xs), want, dt)
+    if dt == torch.float32:
+        # each row op summed as the fused kernel sums it, the ops added in
+        # float32 as the per-RowOp loop adds them: the same bits
+        from repro_torch.core.engine import _emit_const
+        loop = _emit_const(eng.plan_ir, cuda_device, dt)(xs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, loop)

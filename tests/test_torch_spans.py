@@ -32,8 +32,9 @@ from repro_torch.kernels.stencil_direct import ops as direct_ops
 from repro_torch.vet import lowering
 
 CPU = torch.device("cpu")
-#: backend -> the kernel region each engine call enters
-REGION = {"cuda_sptc": "sptc_spmm_fused", "cuda_direct": "stencil2d"}
+#: backend -> the kernel region each engine call of a 2-D box enters (on
+#: cuda_sptc its row ops run as one rows-kernel launch)
+REGION = {"cuda_sptc": "sptc_spmm_rows2d", "cuda_direct": "stencil2d"}
 
 
 def _box(device, shape=(18, 18)):
@@ -169,7 +170,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend,counter",
-                         [("cuda_sptc", sptc_ops.sptc_spmm_fused),
+                         [("cuda_sptc", sptc_ops.sptc_spmm_rows2d),
                           ("cuda_direct", direct_ops.stencil2d)])
 def test_kernels_start_after_the_apply_span_that_launched_them(
         cuda_device, backend, counter):

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.engine import StencilEngine
+from repro_torch.core.engine import StencilEngine, kernel_launches
 from repro_torch.core.stencil import make_stencil, paper_suite
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.sptc_spmm import ops as sptc_ops
@@ -18,9 +18,10 @@ from repro_torch.tuner import (PlanCache, autotune, plan_for, tuned_apply,
                                tuned_apply_batched)
 
 TOL = 3e-5
-COUNTERS = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
-            "cuda_gemm": gemm_ops.windows_gemm,
-            "cuda_direct": direct_ops.stencil2d}
+#: the stencil kernels' wrappers, by name
+WRAPPERS = {fn.__name__: fn for fn in (
+    sptc_ops.sptc_spmm_fused, sptc_ops.sptc_spmm_rows2d,
+    gemm_ops.windows_gemm, direct_ops.stencil2d)}
 
 
 @pytest.fixture
@@ -82,13 +83,16 @@ def test_batch_of_four_launches_once_per_row_op(cuda_device, backend, shape,
     dims = (4099,) if ndim == 1 else (67, 131)
     xs = _x(spec, dims, cuda_device, batch=4)
     eng.apply_batched(xs)                      # builds the library
-    for fn in COUNTERS.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
     got = eng.apply_batched(xs)
     torch.cuda.synchronize()
-    ops = 1 if backend == "cuda_direct" else len(eng.plan_ir.decompose.ops)
-    assert {b: fn.launches for b, fn in COUNTERS.items()} == \
-        {b: (ops if b == backend else 0) for b in COUNTERS}
+    # as many launches as one job: one of the direct kernel, and of the
+    # rows kernel for a 2-D box on cuda_sptc; one a row op of the other
+    # matrix kernels
+    want = kernel_launches(eng.plan_ir)
+    assert {n: fn.launches for n, fn in WRAPPERS.items()} == \
+        {n: want.get(n, 0) for n in WRAPPERS}
     direct = StencilEngine(spec, "direct", device=cuda_device)
     for i in range(4):
         _close(got[i], direct(xs[i]))

@@ -35,6 +35,7 @@ from repro.vet.rules import (LockDisciplineRule as RefLockDisciplineRule,
                              LockedSuffixRule as RefLockedSuffixRule,
                              NondetKeyRule as RefNondetKeyRule)
 from repro_torch.core import StencilEngine, make_stencil, paper_suite
+from repro_torch.core.engine import kernel_launches
 from repro_torch.kernels.common import region
 from repro_torch.vet import code as vet_code
 from repro_torch.vet import invariants, lowering
@@ -338,12 +339,21 @@ def test_products_equal_the_reference_dots(backend):
 
 
 def test_fused_regions_equal_the_reference_pallas_calls():
+    # one program per reference pallas_call, except a 2-D box: its R
+    # pallas_calls (one per row op) are the one sptc_spmm_rows2d launch
     ref_fs, ref_probes = ref_lowering.analyze_pallas_fused(RefVetConfig())
     fs, probes = lowering.analyze_fused(VetConfig(), CPU)
     assert ref_fs == [] and fs == [], [f.format() for f in fs]
     assert sorted(probes) == sorted(ref_probes)
-    for sym in probes:
-        assert probes[sym]["programs"] == ref_probes[sym]["pallas_call"], sym
+    for (shape_kind, ndim, radius), _ in lowering.PALLAS_PROBES:
+        spec = make_stencil(shape_kind, ndim, radius, seed=7)
+        sym = f"{lowering.FUSED_KERNEL}/{spec.name}"
+        napps = lowering.n_applications(spec, fused=False)
+        assert ref_probes[sym]["pallas_call"] == napps, sym
+        want = ({lowering.ROWS_KERNEL: 1} if shape_kind == "box"
+                else {lowering.FUSED_KERNEL: napps})
+        assert lowering.fused_programs(spec) == want, sym
+        assert probes[sym]["programs"] == sum(want.values()), sym
         assert probes[sym]["gathers"] == ref_probes[sym]["gather"] == 0
 
 
@@ -661,12 +671,16 @@ def test_planted_gather_and_v1_path_are_flagged(shape_kind):
         engine(x), StencilEngine(spec, "cuda_sptc", device="cpu")(x))
     fs, got, dense = lowering.audit_fused(VetConfig(), engine, spec, x, "p")
     napps = lowering.n_applications(spec, fused=False)
-    assert got.counts["gathers"] == napps and dense.counts["gathers"] == 0
+    # one gather in front of each program: each row op's fused kernel, or
+    # the box's one rows kernel
+    programs = lowering.fused_programs(spec)
+    assert got.counts["gathers"] == sum(programs.values())
+    assert dense.counts["gathers"] == 0
     assert {f.rule for f in fs} == {"pallas-fused-overhead"}
     # inside the region the CPU audit cannot see it (the card's can)
     hidden = lowering.planted_gather(spec, CPU, in_region=True)
     fs, got, _ = lowering.audit_fused(VetConfig(), hidden, spec, x, "p")
-    assert fs == [] and got.regions == {"sptc_spmm_fused": napps}
+    assert fs == [] and got.regions == programs
     fs, got, _ = lowering.audit_fused(VetConfig(), lowering.v1_path(spec),
                                       spec, x, "v1")
     assert got.regions == {"sptc_spmm_windows": napps}
@@ -717,7 +731,9 @@ def test_outside_counts_do_not_depend_on_size(backend):
         counts = [lowering.audit_call(eng, lowering.probe_input(
             tuple(s + 2 * r for s in dims), CPU)).counts for dims in shapes]
         assert counts[0] == counts[1], (spec.name, counts)
-        assert counts[0]["programs"] == len(eng.plan_ir.decompose.ops)
+        # a cuda_sptc 2-D box runs its row ops as one rows-kernel program
+        want = sum(kernel_launches(eng.plan_ir).values())
+        assert counts[0]["programs"] == want
 
 
 def test_region_is_free_without_a_profiler():

@@ -9,7 +9,7 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.core.engine import StencilEngine
+from repro_torch.core.engine import StencilEngine, kernel_launches
 from repro_torch.core.stencil import make_stencil, paper_suite
 from repro_torch.kernels import dispatch
 from repro_torch.vet import lowering
@@ -32,7 +32,9 @@ def test_cuda_sptc_probes_certify_the_fused_program(cuda_device):
         [f.format() for f in findings]
     assert findings == [], [f.format() for f in findings]
     for sym, c in probes.items():
-        napps = 2 if "star" in sym else 3
+        # star-2d1r: one fused program a row op; box-2d1r: one rows-kernel
+        # program for its three row ops
+        napps = 2 if "star" in sym else 1
         assert c["programs"] == c["kernels"] == napps, (sym, c)
         assert c["gathers"] == 0 and c["uploads"] == 0, (sym, c)
 
@@ -66,7 +68,8 @@ def test_counts_do_not_change_with_the_probe_size(cuda_device, backend):
         audits = [lowering.audit_call(eng, lowering.probe_input(
             tuple(s + 2 * r for s in dims), cuda_device)) for dims in shapes]
         assert audits[0].counts == audits[1].counts, (spec.name, audits)
-        assert audits[1].counts["kernels"] == len(eng.plan_ir.decompose.ops)
+        want = sum(kernel_launches(eng.plan_ir).values())
+        assert audits[1].counts["kernels"] == want
         assert 0 < audits[1].kernel_share <= 1
 
 
@@ -91,7 +94,7 @@ def test_outside_device_ops_flags_a_memset_and_a_raw_launch(cuda_device,
     fs, got, dense = lowering.audit_fused(VetConfig(), eng, spec, x, "ok")
     assert fs == [], [f.format() for f in fs]
     assert lowering.check_device_ops(VetConfig(), "gemm", dense.counts) == []
-    # star-2d1r 4 = 1 + 2 + 1, box-2d1r 7 = 3 + 3 + 1
+    # star-2d1r 4 = 1 + 2 + 1; box-2d1r 0: its one rows-kernel launch
     c = got.counts
     assert c["device_ops"] == c["copies"] + c["adds"] + c["fills"], c
 
@@ -126,7 +129,8 @@ def test_audit_traces_keep_every_device_op(cuda_device):
                         device=cuda_device)
     x = lowering.probe_input((18, 18), cuda_device)
     want = lowering.audit_call(eng, x).counts
-    assert want["programs"] == want["kernels"] == 3, want
+    # the box's three row ops: one rows-kernel program
+    assert want["programs"] == want["kernels"] == 1, want
     for _ in range(100):
         a = lowering.profile_call(eng, x)
         assert a.counts == want, (a.counts, want)
@@ -141,12 +145,12 @@ def test_planted_retake_counts_every_launch(cuda_device):
     eng = StencilEngine(make_stencil("box", 2, 1, seed=7), "cuda_sptc",
                         device=cuda_device)
     x = lowering.probe_input((18, 18), cuda_device)
-    per_call = len(eng.plan_ir.decompose.ops)
+    per_call = 1                 # the box's row ops in one rows-kernel launch
     want = lowering.audit_call(eng, x)
-    n0 = sptc_ops.sptc_spmm_fused.launches
+    n0 = sptc_ops.sptc_spmm_rows2d.launches
     with lowering.planted_lost_head():
         got = lowering.audit_call(eng, x)
-    launches = sptc_ops.sptc_spmm_fused.launches - n0
+    launches = sptc_ops.sptc_spmm_rows2d.launches - n0
     assert got.attempts >= 2, got.attempts
     assert launches == (1 + got.attempts) * per_call, (launches, got.attempts)
     assert got.counts == want.counts, (got.counts, want.counts)
