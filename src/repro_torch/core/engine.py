@@ -52,7 +52,12 @@ a zero-filled accumulator.
 Spans (``kernels/common.py::region``, on while a profiler is active):
 ``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``
 and ``apply_batched`` around the emitted function, ``engine.pad`` per
-re-pad in ``iterate``.
+re-pad in ``iterate``.  Inside ``engine.apply`` the per-RowOp loop's glue
+has its own: ``engine.layout_copy`` around each copy made to give a
+kernel a unit column stride (opened only when a copy is made, so a
+contiguous grid opens none), and ``engine.accumulate`` around the zero
+fill of the accumulator and each ``acc + y`` (1 + R a call of R row ops;
+the ``single`` emission opens none).
 
 Device rule: an engine runs on the card (``device=None`` means ``cuda``)
 unless the caller passes ``device="cpu"``; without a card, ``device=None``
@@ -187,7 +192,8 @@ def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int) -> Tensor:
     a batch of several 2-D grids.  A 2-D ``rows`` plan the rows kernel holds
     never comes here (:func:`_emit_rows2d`)."""
     if x2d.shape[1] > 1 and x2d.stride(1) != 1:
-        x2d = x2d.contiguous()
+        with region("engine.layout_copy"):
+            x2d = x2d.contiguous()
     return sptc_spmm_fused(op, x2d, n_out=n_out)
 
 
@@ -267,8 +273,9 @@ def _fused_operand(plan: LoweredPlan, i: int, device: torch.device,
     """The fused kernels' tables of operand ``i`` of a cuda_sptc plan."""
     sp = plan.sparsify
     assert sp is not None
-    # the metadata-free banded path is the star decomposition's fast path;
-    # box "rows" ops keep the faithful metadata decode
+    # the banded values of a single/star-axis operand feed the plain
+    # version's metadata-free path alone: on the card a star operand and a
+    # box one run the same kernel from the same tables
     star = plan.decompose.mode in ("single", "star-axis")
     return fused_operand(sp.operands[i], sp.perm, plan.L,
                          star_fast="auto" if star else False, dtype=dtype,
@@ -301,6 +308,13 @@ def _op_slice(mode: str, op: RowOp, out_shape: Tuple[int, ...], r: int,
     return batch + sl, lead + d - 1
 
 
+def _accumulate(acc: Tensor, y: Tensor) -> Tensor:
+    """The per-RowOp loop's ``acc + y`` in its span.  ``y`` is freed as the
+    call returns, as it would be inline."""
+    with region("engine.accumulate"):
+        return acc + y
+
+
 def _emit_const(plan: LoweredPlan, device: torch.device,
                 dtype: torch.dtype,
                 operand_fn: Callable[..., OpFn] = _operand_fn) -> ApplyFn:
@@ -324,11 +338,13 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
 
     def fn(xs: Tensor) -> Tensor:
         out_shape = tuple(s - 2 * r for s in xs.shape[1:])
-        acc = torch.zeros((xs.shape[0],) + out_shape, dtype=xs.dtype,
-                          device=xs.device)
+        with region("engine.accumulate"):
+            acc = torch.zeros((xs.shape[0],) + out_shape, dtype=xs.dtype,
+                              device=xs.device)
         for op, f in zip(dec.ops, op_fns):
             sl, axis = _op_slice(mode, op, out_shape, r, d, lead=1)
-            acc = acc + _apply_op(f, xs[sl], out_shape[axis - 1], axis)
+            acc = _accumulate(acc, _apply_op(f, xs[sl], out_shape[axis - 1],
+                                             axis))
         return acc
     return fn
 
@@ -386,7 +402,8 @@ def _emit_rows2d(plan: LoweredPlan, device: torch.device,
     def fn(xs: Tensor) -> Tensor:
         # the kernel takes any batch and row stride, not a column stride
         if xs.shape[2] > 1 and xs.stride(2) != 1:
-            xs = xs.contiguous()
+            with region("engine.layout_copy"):
+                xs = xs.contiguous()
         return sptc_spmm_rows2d(rop, xs)
     return fn
 

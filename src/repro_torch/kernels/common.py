@@ -15,8 +15,11 @@ one flag check.  Two families open it:
 * ``core/engine.py``'s ``StencilEngine`` (``ENGINE_SPANS``): one
   ``engine.iterate`` per ``iterate`` call, one ``engine.apply`` per engine
   call around its emitted function (the kernel regions nest inside it),
-  one ``engine.pad`` per re-pad of ``iterate``.  They hold no work of
-  their own: the launch audit walks through them.
+  one ``engine.pad`` per re-pad of ``iterate``; inside ``engine.apply``,
+  ``engine.layout_copy`` around each copy the engine makes to give a
+  kernel a unit column stride, and ``engine.accumulate`` around the
+  per-RowOp loop's zero fill and each of its adds.  The launch audit walks
+  through them, so the work inside them is counted as the engine's.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ KERNEL_REGIONS = {
 }
 
 #: the engine's spans, outermost first
-ENGINE_SPANS = ("engine.iterate", "engine.apply", "engine.pad")
+ENGINE_SPANS = ("engine.iterate", "engine.apply", "engine.pad",
+                "engine.layout_copy", "engine.accumulate")
 
 
 def region(name: str) -> ContextManager:

@@ -2,7 +2,8 @@
 
 Spans (``kernels/common.py::region``) are profiler ranges, on exactly while
 a ``torch.profiler`` is active: ``StencilEngine`` opens ``engine.iterate``,
-``engine.apply`` and ``engine.pad``, and the kernel wrappers' regions nest
+``engine.apply`` and ``engine.pad``; the kernel wrappers' regions and the
+per-RowOp loop's ``engine.layout_copy`` and ``engine.accumulate`` nest
 inside ``engine.apply``.  The launch audit walks through the engine's
 spans, so an engine call audits as its emitted function does.  Set-up
 counters: ``lower_spec.calls`` / ``lower_spec.seconds``,
@@ -51,7 +52,8 @@ def _ancestors(e):
 
 
 def test_engine_span_names():
-    assert ENGINE_SPANS == ("engine.iterate", "engine.apply", "engine.pad")
+    assert ENGINE_SPANS == ("engine.iterate", "engine.apply", "engine.pad",
+                            "engine.layout_copy", "engine.accumulate")
     assert not set(ENGINE_SPANS) & set(KERNEL_REGIONS)
 
 
@@ -63,7 +65,8 @@ def test_iterate_records_its_spans_with_the_regions_inside(backend):
         y = eng.iterate(x, 3)
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     count = {n: sum(e.name == n for e in events) for n in ENGINE_SPANS}
-    assert count == {"engine.iterate": 1, "engine.apply": 3, "engine.pad": 3}
+    assert count == {"engine.iterate": 1, "engine.apply": 3, "engine.pad": 3,
+                     "engine.layout_copy": 0, "engine.accumulate": 0}
     regions = [e for e in events if e.name == REGION[backend]]
     assert regions
     for e in regions:
@@ -72,6 +75,58 @@ def test_iterate_records_its_spans_with_the_regions_inside(backend):
         if e.name in ("engine.apply", "engine.pad"):
             assert _ancestors(e) == ["engine.iterate"]
     torch.testing.assert_close(y, eng.iterate(x, 3), rtol=0, atol=0)
+
+
+def _glue(eng, x, steps):
+    """``eng.iterate(x, steps)`` under the profiler: its output and the
+    per-RowOp glue's spans, each with its ancestors."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = eng.iterate(x, steps)
+    spans = [(e.name, _ancestors(e)) for e in prof.events()
+             if e.device_type == DeviceType.CPU
+             and e.name in ("engine.layout_copy", "engine.accumulate")]
+    return y, spans
+
+
+def test_star_iterate_records_the_row_op_glue_inside_apply():
+    """A 2-D star on cuda_sptc (``star-axis``): per step one copy of the
+    last-axis op's transposed input and three accumulator spans (the zero
+    fill and two adds), each under ``engine.apply``; the spans change no
+    bit of the output."""
+    spec = make_stencil("star", 2, 3, seed=11)
+    eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
+    assert eng.plan_ir.decompose.mode == "star-axis"
+    x = lowering.probe_input((30, 34), CPU)
+    plain = eng.iterate(x, 4)
+    y, spans = _glue(eng, x, 4)
+    names = [n for n, _ in spans]
+    assert names.count("engine.layout_copy") == 4
+    assert names.count("engine.accumulate") == 12
+    for _, up in spans:
+        assert up[:2] == ["engine.apply", "engine.iterate"]
+    torch.testing.assert_close(y, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("spec,shape", [(("box", 2, 1), (18, 18)),
+                                        (("box", 1, 2), (68,))])
+def test_contiguous_box_and_line_record_no_row_op_glue(spec, shape):
+    # the rows kernel reads a contiguous grid in place; a 1-D line is the
+    # ``single`` emission: neither copies, fills or adds
+    eng = StencilEngine(make_stencil(*spec, seed=5), backend="cuda_sptc",
+                        device="cpu")
+    _, spans = _glue(eng, lowering.probe_input(shape, CPU), 3)
+    assert spans == []
+
+
+def test_rows_kernel_copy_of_a_transposed_grid_is_a_layout_copy():
+    spec, x = _box(CPU, (18, 22))
+    eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = eng(x.t())
+    spans = [(e.name, _ancestors(e)) for e in prof.events()
+             if e.name in ("engine.layout_copy", "engine.accumulate")]
+    assert spans == [("engine.layout_copy", ["engine.apply"])]
+    torch.testing.assert_close(y, eng(x.t().contiguous()), rtol=0, atol=0)
 
 
 def test_iterate_frees_each_step_before_the_next():
