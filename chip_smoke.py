@@ -9,7 +9,9 @@ ones in the windows GEMM's, holds each kernel against its plain torch
 version on the card (the windows GEMM in each of its modes, at the
 paper's 1-D shapes, and with a planted fault: its 3xTF32 lo terms
 dropped; the 2-D rows kernel with a box engine's own tables on every L
-the tuner offers, and with its row offsets reversed), and drives
+the tuner offers, and with its row offsets reversed; the 2-D star kernel
+with a star engine's own tables on every even L from 2r + 2 to 16, and
+with its two axis operands swapped), and drives
 fifteen paths and the five examples, each with the launch counters set to
 0 just before it and read just after:
 
@@ -240,6 +242,7 @@ except SystemExit as e:
 print("launches " + json.dumps({
     "sptc_spmm_fused": S.sptc_spmm_fused.launches,
     "sptc_spmm_rows2d": S.sptc_spmm_rows2d.launches,
+    "sptc_spmm_star2d": S.sptc_spmm_star2d.launches,
     "windows_gemm": G.windows_gemm.launches,
     "sptc_spmm_windows": S.sptc_spmm_windows.launches}), file=sys.stderr)
 sys.exit(rc)
@@ -249,9 +252,12 @@ V1_SHAPES = ((4, 4), (6, 6), (6, 7), (17, 12), (40, 20))
 V1_LARGEST = ((64, 96), (1, 6144), (6144, 1))
 #: phase 4's rows by kernel: the launch counter's name in the kernels line
 KERNEL_OF = {"sptc": "cuda_sptc", "gemm": "cuda_gemm", "direct": "cuda_direct",
-             "spmm": "sptc_spmm", "rows2d": "sptc_rows2d"}
-#: device names of the three stencil kernels
-STENCIL_KERNELS = ("sptc_mma_kernel", "windows_gemm_kernel", "stencil2d_kernel")
+             "spmm": "sptc_spmm", "rows2d": "sptc_rows2d",
+             "star2d": "sptc_star2d", "star_rows": "sptc_rows2d"}
+#: device names of the stencil kernels
+STENCIL_KERNELS = ("sptc_mma_kernel", "sptc_rows2d_kernel",
+                   "sptc_star2d_kernel", "windows_gemm_kernel",
+                   "stencil2d_kernel")
 #: phase dryrun: the fleet cells ``python -m repro_torch.launch.dryrun``
 #: traces in child processes, (arch, cell, on the multi-pod fleet)
 DRYRUN_CELLS = (("qwen3-1.7b", "decode_32k", False),
@@ -373,6 +379,7 @@ def _sass_mma(lib_path: Path) -> dict:
                           text=True, check=True, timeout=300).stdout
     wanted = {"sparse": ("sptc_mma_kernel", True),
               "sparse rows": ("sptc_rows2d_kernel", True),
+              "sparse star": ("sptc_star2d_kernel", True),
               "sparse v1": ("sptc_spmm_kernel", True),
               "dense": ("windows_gemm_kernel", False)}
     found: dict = {k: {} for k in wanted}
@@ -1795,7 +1802,7 @@ def _launched(eng, counters: dict) -> tuple:
     2-D engine launches, and its launches a call, whatever its batch
     (``engine.kernel_launches``)."""
     from repro_torch.core.engine import kernel_launches
-    (name, n), = kernel_launches(eng.plan_ir).items()
+    (name, n), = kernel_launches(eng.plan_ir, eng.device).items()
     key, = (k for k, fn in counters.items() if fn.__name__ == name)
     return key, n
 
@@ -2164,6 +2171,7 @@ def _phase_vet(dev, smi: str, randn) -> dict:
     out["trace_check"] = _trace_check(dev, smi)
     counters = {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
                 "sptc_spmm_rows2d": sptc_ops.sptc_spmm_rows2d,
+                "sptc_spmm_star2d": sptc_ops.sptc_spmm_star2d,
                 "windows_gemm": gemm_ops.windows_gemm,
                 "sptc_spmm_windows": sptc_ops.sptc_spmm_windows}
     for fn in counters.values():
@@ -2311,8 +2319,9 @@ def _vet_configured(smi: str, fused_verdict: dict) -> dict:
     per severity of ``lowering-hot-gather``: the exit code of
     ``VET_SEVERITY_RC``; that rule on every sptc probe at the severity, or
     nowhere when it is off, and no other finding; no gemm probe; the fused
-    kernel's verdict as in the default run (``fused_verdict``); the fused
-    and gemm kernels launched."""
+    kernel's verdict as in the default run (``fused_verdict``); the 2-D
+    sparse kernels its probes run (the rows and the star kernel) and the
+    gemm kernel launched."""
     import collections
     import os
     import tempfile
@@ -2370,7 +2379,8 @@ def _vet_configured(smi: str, fused_verdict: dict) -> dict:
         if verdict.get(FUSED_KERNEL) != want_fused:
             problems.append(f"fused verdict {verdict.get(FUSED_KERNEL)}, "
                             f"the default run's {want_fused}")
-        if not (launches["sptc_spmm_fused"] and launches["windows_gemm"]):
+        if not (launches["sptc_spmm_rows2d"] and launches["sptc_spmm_star2d"]
+                and launches["windows_gemm"]):
             problems.append(f"launches {launches}")
         if problems:
             raise AssertionError(f"{label}: " + "; ".join(problems)
@@ -2588,6 +2598,7 @@ def _phase_halo(dev, smi: str, randn) -> dict:
 
     counters = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
                 "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
+                "sptc_star2d": sptc_ops.sptc_spmm_star2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d}
     for fn in counters.values():
@@ -2769,7 +2780,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.core.engine import (StencilEngine, apply_sptc_v1,
-                                         rows2d_operand, takes_rows2d,
+                                         rows2d_operand, star2d_operand,
+                                         takes_rows2d, takes_star2d,
                                          tile_windows)
     from repro_torch.core.sparsify import sparsify_stencil_kernel
     from repro_torch.core.sptc import sptc_matmul_dense_equiv
@@ -2782,7 +2794,8 @@ def main() -> int:
     from repro_torch.kernels.sptc_spmm.fragments import tf32_round
     from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
                                                    sptc_rows2d_ref,
-                                                   sptc_spmm_windows_ref)
+                                                   sptc_spmm_windows_ref,
+                                                   sptc_star2d_ref)
     from repro_torch.kernels.stencil_direct import ops as direct_ops
     from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
     from repro_torch.kernels.stencil_gemm import ops as gemm_ops
@@ -2827,8 +2840,8 @@ def main() -> int:
 
     # -- phase 2: every kernel against its plain version on the card --------
     rng = np.random.default_rng(0)
-    worst = {"sptc": 0.0, "rows2d": 0.0, "gemm": 0.0, "direct": 0.0,
-             "spmm": 0.0, "conv1d": 0.0}
+    worst = {"sptc": 0.0, "rows2d": 0.0, "star2d": 0.0, "gemm": 0.0,
+             "direct": 0.0, "spmm": 0.0, "conv1d": 0.0}
     cases = dict.fromkeys(worst, 0)
     dtypes = ((f32, None), (f32, torch.bfloat16), (torch.bfloat16, None))
     sptc_cases = [(r, L, c, star, n_out)
@@ -2880,39 +2893,55 @@ def main() -> int:
         raise AssertionError("a flipped metadata field passes the sptc check")
     results["sptc_planted_fault_rel_err"] = fault
     # the rows kernel with a box engine's own tables, on every L the tuner
-    # offers: batches of 1-3, odd shapes, H < 8, H = W = 1, a view at odd
-    # batch and row strides, rows off 16 bytes (4-, 8- and 16-byte copies)
+    # offers, and the star kernel with a star engine's, on every even L from
+    # 2r + 2 to 16: batches of 1-3, odd shapes, H < 8, H = W = 1, a view at
+    # odd batch and row strides, rows off 16 bytes (4-, 8- and 16-byte
+    # copies)
+    def grids(r, dt):
+        for b, h, w, view in ((1, 67, 131, "plain"), (3, 37, 29, "strided"),
+                              (1, 5, 204 - 2 * r, "offset"),
+                              (3, 130, 130 - 2 * r, "plain"),
+                              (1, 8, 1001, "plain"), (2, 1, 1, "plain")):
+            hh, ww = h + 2 * r, w + 2 * r
+            if view == "strided":
+                yield randn(b, hh + 3, ww + 5, dtype=dt,
+                            seed=h + r)[:, 1:1 + hh, 3:3 + ww]
+            elif view == "offset":
+                yield randn(b * hh * ww + 1, dtype=dt,
+                            seed=h + r)[1:].view(b, hh, ww)
+            else:
+                yield randn(b, hh, ww, dtype=dt, seed=h + r)
+
     for r in (1, 2, 3):
         box = make_stencil("box", 2, r, seed=r)
-        for L in l_candidates(r):
-            for dt in (f32, torch.bfloat16):
+        star = make_stencil("star", 2, r, seed=r)
+        for dt in (f32, torch.bfloat16):
+            tol = TOL if dt == f32 else TOL_BF16
+            for L in l_candidates(r):
                 rop = rows2d_operand(StencilEngine(
                     box, "cuda_sptc", L=L, device=dev, dtype=dt).plan_ir,
                     dev, dt)
                 rops = [(o.values, o.meta_words, o.star_fast)
                         for o in rop.ops]
-                for b, h, w, view in ((1, 67, 131, "plain"),
-                                      (3, 37, 29, "strided"),
-                                      (1, 5, 204 - 2 * r, "offset"),
-                                      (3, 130, 130 - 2 * r, "plain"),
-                                      (1, 8, 1001, "plain"),
-                                      (2, 1, 1, "plain")):
-                    hh, ww = h + 2 * r, w + 2 * r
-                    if view == "strided":
-                        xs = randn(b, hh + 3, ww + 5, dtype=dt,
-                                   seed=h + r)[:, 1:1 + hh, 3:3 + ww]
-                    elif view == "offset":
-                        xs = randn(b * hh * ww + 1, dtype=dt,
-                                   seed=h + r)[1:].view(b, hh, ww)
-                    else:
-                        xs = randn(b, hh, ww, dtype=dt, seed=h + r)
+                for xs in grids(r, dt):
                     got = sptc_ops.sptc_spmm_rows2d(rop, xs)
                     want = sptc_rows2d_ref(rops, rop.leads, xs,
                                            halo=rop.halo, L=rop.L)
-                    tol = TOL if dt == f32 else TOL_BF16
                     worst["rows2d"] = max(worst["rows2d"],
                                           _err(got, want, tol))
                     cases["rows2d"] += 1
+            for L in range(2 * r + 2, 17, 2):
+                sop = star2d_operand(StencilEngine(
+                    star, "cuda_sptc", L=L, device=dev, dtype=dt).plan_ir,
+                    dev, dt)
+                sops = [(o.values, o.meta_words, o.star_fast)
+                        for o in sop.ops]
+                for xs in grids(r, dt):
+                    got = sptc_ops.sptc_spmm_star2d(sop, xs)
+                    want = sptc_star2d_ref(sops, xs, radius=r, L=L)
+                    worst["star2d"] = max(worst["star2d"],
+                                          _err(got, want, tol))
+                    cases["star2d"] += 1
     # planted fault: the row offsets of the box's row ops reversed, so
     # each op reads another op's rows; the same check must fail
     rop = rows2d_operand(StencilEngine(make_stencil("box", 2, 1, seed=1),
@@ -2929,6 +2958,23 @@ def main() -> int:
     if not fault > TOL:
         raise AssertionError("reversed row offsets pass the rows2d check")
     results["rows2d_planted_fault_rel_err"] = fault
+    # planted fault: the star kernel's tables of its two axis operands
+    # swapped, so each axis runs the other's weights
+    sop = star2d_operand(StencilEngine(make_stencil("star", 2, 3, seed=3),
+                                       "cuda_sptc", device=dev).plan_ir,
+                         dev, f32)
+    swapped = sptc_ops.star_operand(sop.ops[::-1], sop.radius)
+    xs = randn(2, 47, 83, seed=97)
+    want = sptc_star2d_ref([(o.values, o.meta_words, o.star_fast)
+                            for o in sop.ops], xs, radius=sop.radius,
+                           L=sop.L)
+    fault = _rel(sptc_ops.sptc_spmm_star2d(dataclasses.replace(
+        sop, tf32=swapped.tf32, bf16=swapped.bf16), xs), want)
+    print(f"phase 2 star2d planted fault (the two axis operands' tables "
+          f"swapped): max rel err {fault:.3g} (tol {TOL})")
+    if not fault > TOL:
+        raise AssertionError("swapped axis operands pass the star2d check")
+    results["star2d_planted_fault_rel_err"] = fault
     # the windows GEMM in each of its modes (C = 1; 1 < C < 16; C >= 16,
     # even or odd), 7 tiles and several blocks with a ragged last warp
     # item (64 rows of A), windows 8-byte aligned and one element past
@@ -3091,6 +3137,7 @@ def main() -> int:
     backends = ("cuda_sptc", "cuda_gemm", "cuda_direct")
     counters = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
                 "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
+                "sptc_star2d": sptc_ops.sptc_spmm_star2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d}
     for fn in counters.values():
@@ -3188,7 +3235,7 @@ def main() -> int:
         conv_w = torch.as_tensor(np.asarray(w1), dtype=f32,
                                  device=dev).reshape(1, 1, -1, 1)
         conv_in = x2d.reshape(1, 1, rows_in, c)
-        rows2d = takes_rows2d(plan)
+        rows2d, star2d = takes_rows2d(plan), takes_star2d(plan)
         if rows2d:
             # the engine's one launch on the haloed grid where it lies, with
             # its own tables; the fused kernel is not on this spec's path
@@ -3209,6 +3256,24 @@ def main() -> int:
                 lambda: sptc_fused_ref(fop.values, fop.meta_words, x2d,
                                        n_out=n_out, L=plan.L,
                                        star_fast=fop.star_fast))}
+        if star2d:
+            # the engine's one launch on the haloed grid where it lies, and
+            # beside it the same star lowered as a rows plan (R = 2r + 1 row
+            # ops) on the rows kernel
+            sop = star2d_operand(plan, dev, f32)
+            sops = [(o.values, o.meta_words, o.star_fast) for o in sop.ops]
+            rop = rows2d_operand(StencilEngine(
+                spec, "cuda_sptc", star_fast_path=False, device=dev).plan_ir,
+                dev, f32)
+            rops = [(o.values, o.meta_words, o.star_fast) for o in rop.ops]
+            xs = x[None]
+            app["star2d"] = (
+                lambda: sptc_ops.sptc_spmm_star2d(sop, xs),
+                lambda: sptc_star2d_ref(sops, xs, radius=r, L=sop.L))
+            app["star_rows"] = (
+                lambda: sptc_ops.sptc_spmm_rows2d(rop, xs),
+                lambda: sptc_rows2d_ref(rops, rop.leads, xs, halo=rop.halo,
+                                        L=rop.L))
         km = torch.as_tensor(
             StencilEngine(spec, "cuda_gemm", device=dev).plan_ir.kernel
             .matrices[0], dtype=f32, device=dev)
@@ -3237,10 +3302,13 @@ def main() -> int:
         # inputs; the windows GEMM's is the dense product on the windows
         lib = {"sptc": lambda: F.conv2d(conv_in, conv_w),
                "rows2d": lambda: F.conv2d(full_in, full_w),
+               "star2d": lambda: F.conv2d(full_in, full_w),
+               "star_rows": lambda: F.conv2d(full_in, full_w),
                "gemm": lambda: torch.matmul(km, win),
                "direct": lambda: F.conv2d(full_in, full_w),
                "spmm": lambda: torch.matmul(dense, win_sw)}
         lib_name = {"sptc": "F.conv2d", "rows2d": "F.conv2d",
+                    "star2d": "F.conv2d", "star_rows": "F.conv2d",
                     "gemm": "torch.matmul", "direct": "F.conv2d",
                     "spmm": "torch.matmul"}
         for k, (kern, plain) in app.items():
@@ -3262,12 +3330,16 @@ def main() -> int:
                     int(torch.count_nonzero(fop.values))
                 shape = f"x2d {tuple(x2d.shape)} n_out {n_out} L {plan.L} " \
                         f"star_fast {fop.star_fast}"
-            elif k == "rows2d":
+            elif k in ("rows2d", "star2d", "star_rows"):
+                ops = sop.ops if k == "star2d" else rop.ops
                 nbytes = (x.numel() + pts) * 4
                 flops = 2.0 * -(-N_2D // plan.L) * N_2D * sum(
-                    int(torch.count_nonzero(o.values)) for o in rop.ops)
-                shape = f"xs {tuple(xs.shape)} L {plan.L} " \
-                        f"{len(rop.ops)} row ops (the engine's tables)"
+                    int(torch.count_nonzero(o.values)) for o in ops)
+                shape = f"xs {tuple(xs.shape)} L {plan.L} " + (
+                    "2 axis ops (the engine's tables)" if k == "star2d" else
+                    f"{len(ops)} row ops (" + ("the engine's tables)"
+                                              if k == "rows2d" else
+                                              "the star as a rows plan)"))
             elif k == "gemm":
                 nbytes = (win.numel() + km.numel() + win.shape[0] * plan.L * c) * 4
                 flops = 2.0 * win.shape[0] * c * km.numel()
@@ -3300,8 +3372,10 @@ def main() -> int:
                   f"{100 * bound / ms:.0f}%) launches {launches[KERNEL_OF[k]]}"
                   f" | {shape} | card {smi}")
         del app, lib, win, win_sw, dense, x2d, conv_in
-        if rows2d:
+        if rows2d or star2d:
             del rop, rops, xs
+        if star2d:
+            del sop, sops
         # end to end: engine GStencil/s for each backend, F.conv2d beside it
         conv_ms = _time_ms(lambda: F.conv2d(full_in, full_w), 10, hold=False)
         e2e = {}
@@ -3319,18 +3393,6 @@ def main() -> int:
                                             sum(per_call.values())),
                       "outside_kernel_share": (None if kern_ms is None else
                                                max(0.0, 1 - kern_ms / e_ms))}
-        if d == 2 and not rows2d:
-            # the transposed copies cuda_sptc's per-RowOp loop makes:
-            # stencil axis last (star axis 1) is a unit row stride
-            def copies():
-                for op in plan.decompose.ops:
-                    if mode == "rows" or op.axis == 1:
-                        u = op.lead[0] if mode == "rows" else r
-                        x[u:u + N_2D, :].T.contiguous()
-            copy_ms = _time_ms(copies, 10, hold=False)
-            e2e["cuda_sptc"]["transpose_copy_ms"] = copy_ms
-            e2e["cuda_sptc"]["transpose_copy_share"] = \
-                copy_ms / e2e["cuda_sptc"]["ms"]
         line["engine"] = e2e
         line["conv2d"] = {"ms": conv_ms, "gstencil_s": pts / conv_ms / 1e6}
         rows[spec.name] = line
@@ -3341,12 +3403,7 @@ def main() -> int:
                f"{100 * v['outside_kernel_share']:.0f}%") + ")"
             for b, v in e2e.items())
             + f" | F.conv2d={pts / conv_ms / 1e6:.2f} GStencil/s "
-              f"({conv_ms:.3f} ms)"
-            + ("" if "transpose_copy_ms" not in e2e["cuda_sptc"] else
-               f" | cuda_sptc transpose copies "
-               f"{e2e['cuda_sptc']['transpose_copy_ms']:.3f} ms "
-               f"({100 * e2e['cuda_sptc']['transpose_copy_share']:.0f}% of "
-               f"the call)") + f" | card {smi}")
+              f"({conv_ms:.3f} ms) | card {smi}")
         del x, full_in, eng
         torch.cuda.empty_cache()
     results["timing"] = rows
@@ -3397,6 +3454,7 @@ def main() -> int:
     # and phase vet's audited calls
     launches["cuda_sptc"] += vet["launches"]["sptc_spmm_fused"]
     launches["sptc_rows2d"] += vet["launches"]["sptc_spmm_rows2d"]
+    launches["sptc_star2d"] += vet["launches"]["sptc_spmm_star2d"]
     launches["cuda_gemm"] += vet["launches"]["windows_gemm"]
     launches["sptc_spmm"] += vet["launches"]["sptc_spmm_windows"]
 
@@ -3448,6 +3506,7 @@ def main() -> int:
     # -- phase examples: examples/*_torch.py on the card ---------------------
     wrappers = {"cuda_sptc": sptc_ops.sptc_spmm_fused,
                 "sptc_rows2d": sptc_ops.sptc_spmm_rows2d,
+                "sptc_star2d": sptc_ops.sptc_spmm_star2d,
                 "cuda_gemm": gemm_ops.windows_gemm,
                 "cuda_direct": direct_ops.stencil2d,
                 "sptc_spmm": sptc_ops.sptc_spmm_windows,
@@ -3461,10 +3520,14 @@ def main() -> int:
     # kernel, which a 2-D box no longer runs, the star at its size
     canon = dict.fromkeys(KERNEL_OF, "box-2d1r")
     canon["sptc"] = "star-2d1r"
+    canon["star2d"] = "star-2d3r"
     meta = {"sptc": ("src/repro_torch/kernels/csrc/sptc_fused.cu",
                      "src/repro/kernels/sptc_spmm/kernel.py:112"),
             # one launch for the R calls of the reference's fused kernel
             "rows2d": ("src/repro_torch/kernels/csrc/sptc_rows2d.cu",
+                       "src/repro/kernels/sptc_spmm/kernel.py:112"),
+            # one launch for the two calls of the reference's fused kernel
+            "star2d": ("src/repro_torch/kernels/csrc/sptc_star2d.cu",
                        "src/repro/kernels/sptc_spmm/kernel.py:112"),
             "gemm": ("src/repro_torch/kernels/csrc/windows_gemm.cu",
                      "src/repro/kernels/stencil_gemm/kernel.py:24"),

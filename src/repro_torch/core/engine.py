@@ -33,21 +33,23 @@ Batches: every emission takes a leading batch axis, ``(B, *spatial)``, and
 (``single``, ``star-axis``, ``rows``) fold the batch axis into the column
 axis of each 1-D application, ``cuda_direct`` runs 1-D and 2-D batches on
 its kernel's batch axis, and a 2-D ``rows`` plan on ``cuda_sptc`` runs the
-whole batch through one ``sptc_spmm_rows2d`` launch: a super-batch costs as
-many kernel launches as one job.  Fused rows, variable coefficients and
+whole batch through one ``sptc_spmm_rows2d`` launch, a 2-D ``star-axis``
+plan on the card through one ``sptc_spmm_star2d`` launch: a super-batch
+costs as many kernel launches as one job.  Fused rows, variable coefficients and
 3-D ``cuda_direct`` loop over the jobs of a batch.
 
 Copies on ``cuda_sptc``: a 2-D ``rows`` plan (a box, or a star without its
 fast path) whose L and row ops the rows kernel holds
-(:func:`takes_rows2d`: even L <= 16) reads the haloed batch where it lies,
-with no copy, no zero fill and no add: one launch sums every row op on
-chip (only an input whose last axis is not of unit stride, such as a
-transposed view, is copied once first).  The per-RowOp loop runs
-everything else, a 2-D ``rows`` plan with a larger L among them: each 1-D
-application along the last axis copies its transposed slice to a unit
-column stride, a ``star-axis`` application along the leading axis copies
-only for a batch of more than one grid, and the R results are added into
-a zero-filled accumulator.
+(:func:`takes_rows2d`: even L <= 16), and on the card a 2-D ``star-axis``
+plan whose L the star kernel holds (:func:`takes_star2d`: even L from
+2r + 2 to 16), read the haloed batch where it lies, with no copy, no zero
+fill and no add: one launch sums every row op on chip (only an input whose
+last axis is not of unit stride, such as a transposed view, is copied once
+first).  The per-RowOp loop runs everything else, a 3-D grid, a 2-D plan
+with a larger L and a 2-D star on the CPU among them: each 1-D application along the last axis copies its
+transposed slice to a unit column stride, an application along a leading
+axis copies only for a batch of more than one grid, and the R results are
+added into a zero-filled accumulator.
 
 Spans (``kernels/common.py::region``, on while a profiler is active):
 ``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``
@@ -79,16 +81,19 @@ from repro_torch.core.transform import default_l, kernel_matrix, lower_spec
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.common import region
 from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, RowsOperand,
-                                               fused_operand, rows2d_holds,
-                                               rows_operand,
+                                               StarOperand, fused_operand,
+                                               rows2d_holds, rows_operand,
                                                sptc_spmm_fused,
                                                sptc_spmm_rows2d,
-                                               sptc_spmm_windows)
+                                               sptc_spmm_star2d,
+                                               sptc_spmm_windows,
+                                               star2d_holds, star_operand)
 from repro_torch.kernels.stencil_gemm.ops import windows_gemm
 
 __all__ = ["BACKENDS", "StencilEngine", "apply_stencil", "apply_1d",
            "apply_sptc_v1", "kernel_launches", "resolve_device",
-           "rows2d_operand", "takes_rows2d", "tile_windows"]
+           "rows2d_operand", "star2d_operand", "takes_rows2d",
+           "takes_star2d", "tile_windows"]
 
 Tensor = torch.Tensor
 ApplyFn = Callable[[Tensor], Tensor]
@@ -188,9 +193,10 @@ def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int) -> Tensor:
     the packed meta words, dot.  Nothing is windowed, permuted or gathered
     outside it; the kernel takes any row stride, so only a transposed view
     (unit row stride) is copied first: the per-RowOp loop's applications
-    along the last axis of a 2-D or 3-D grid, and along the leading axis of
-    a batch of several 2-D grids.  A 2-D ``rows`` plan the rows kernel holds
-    never comes here (:func:`_emit_rows2d`)."""
+    along the last axis of a 2-D or 3-D grid, and along a leading axis of a
+    batch of several grids.  A 2-D plan the rows kernel holds, or on the
+    card the star kernel, never comes here (:func:`_emit_rows2d`,
+    :func:`_emit_star2d`)."""
     if x2d.shape[1] > 1 and x2d.stride(1) != 1:
         with region("engine.layout_copy"):
             x2d = x2d.contiguous()
@@ -320,10 +326,10 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
                 operand_fn: Callable[..., OpFn] = _operand_fn) -> ApplyFn:
     """Constant-coefficient single/star-axis/rows emission on ``(B,
     *spatial)`` — shape-generic; one 1-D application per RowOp for the
-    whole batch (the per-RowOp loop; a plan :func:`takes_rows2d` takes
-    never comes here from ``emit``).  ``operand_fn`` binds each operand's
-    1-D application (the verifier passes a faulty one to build its
-    controls)."""
+    whole batch (the per-RowOp loop; a plan :func:`takes_rows2d` or
+    :func:`takes_star2d` takes never comes here from ``emit``).
+    ``operand_fn`` binds each operand's 1-D application (the verifier
+    passes a faulty one to build its controls)."""
     r, d = plan.spec.radius, plan.spec.ndim
     dec = plan.decompose
     mode = dec.mode
@@ -360,20 +366,39 @@ def takes_rows2d(plan: LoweredPlan) -> bool:
                              2 * plan.spec.radius))
 
 
+def takes_star2d(plan: LoweredPlan, device: Device = None) -> bool:
+    """Whether the plan's two axis ops run as ONE ``sptc_spmm_star2d``
+    launch on ``device`` (``None``: the card): a 2-D ``star-axis`` plan on
+    ``cuda_sptc`` with constant coefficients whose L the star kernel holds,
+    on a CUDA device.  On the CPU such a plan keeps the per-RowOp loop and
+    its glue spans, which ``spider_bench``'s star check profiles there; the
+    star kernel's plain version is held against the loop by calling
+    :func:`_emit_star2d` itself.  Every other plan keeps its emission."""
+    return ((device is None or torch.device(device).type == "cuda")
+            and plan.emit.backend == "cuda_sptc"
+            and plan.decompose.mode == "star-axis" and plan.spec.ndim == 2
+            and plan.emit.coefficient_mode == "const"
+            and star2d_holds(plan.L, plan.spec.radius))
+
+
 #: the wrapper each matrix backend launches once per RowOp
 _ROW_OP_KERNELS = {"cuda_sptc": "sptc_spmm_fused", "cuda_gemm": "windows_gemm"}
 
 
-def kernel_launches(plan: LoweredPlan) -> Dict[str, int]:
+def kernel_launches(plan: LoweredPlan,
+                    device: Device = None) -> Dict[str, int]:
     """The kernel wrappers one call of a one-step, constant-coefficient
-    1-D or 2-D engine on ``plan`` launches, by name (each wrapper's
-    ``__name__`` and region), whatever its batch: ``sptc_spmm_rows2d``
-    once for a plan :func:`takes_rows2d` takes, ``stencil2d`` once on
-    ``cuda_direct``, a matrix kernel once per RowOp; none on a plain
-    backend."""
+    1-D or 2-D engine on ``plan`` launches on ``device`` (``None``: the
+    card), by name (each wrapper's ``__name__`` and region), whatever its
+    batch: ``sptc_spmm_rows2d`` once for a plan :func:`takes_rows2d`
+    takes, ``sptc_spmm_star2d`` once for one :func:`takes_star2d` takes
+    there, ``stencil2d`` once on ``cuda_direct``, a matrix kernel once per
+    RowOp; none on a plain backend."""
     backend = plan.emit.backend
     if takes_rows2d(plan):
         return {"sptc_spmm_rows2d": 1}
+    if takes_star2d(plan, device):
+        return {"sptc_spmm_star2d": 1}
     if backend == "cuda_direct":
         return {"stencil2d": 1}
     if backend in _ROW_OP_KERNELS:
@@ -405,6 +430,32 @@ def _emit_rows2d(plan: LoweredPlan, device: torch.device,
             with region("engine.layout_copy"):
                 xs = xs.contiguous()
         return sptc_spmm_rows2d(rop, xs)
+    return fn
+
+
+def star2d_operand(plan: LoweredPlan, device: torch.device,
+                   dtype: torch.dtype) -> StarOperand:
+    """The star kernel's tables of a plan :func:`takes_star2d` takes: its
+    two axis ops' fused tables, the leading axis's first."""
+    ops = sorted(plan.decompose.ops, key=lambda op: op.axis)
+    return star_operand([_fused_operand(plan, op.operand, device, dtype)
+                         for op in ops], plan.spec.radius)
+
+
+def _emit_star2d(plan: LoweredPlan, device: torch.device,
+                 dtype: torch.dtype) -> ApplyFn:
+    """Both axis ops of a 2-D ``star-axis`` plan in one launch on ``(B,
+    H + 2r, W + 2r)``: the batch is read where it lies and the ``(B, H,
+    W)`` interior written once, the two ops summed on chip
+    (``kernels/csrc/sptc_star2d.cu``)."""
+    sop = star2d_operand(plan, device, dtype)
+
+    def fn(xs: Tensor) -> Tensor:
+        # the kernel takes any batch and row stride, not a column stride
+        if xs.shape[2] > 1 and xs.stride(2) != 1:
+            with region("engine.layout_copy"):
+                xs = xs.contiguous()
+        return sptc_spmm_star2d(sop, xs)
     return fn
 
 
@@ -539,6 +590,8 @@ def _emit_step(plan: LoweredPlan, device: torch.device,
         return _per_job(_emit_fused_2d(plan, device, dtype))
     if takes_rows2d(plan):
         return _emit_rows2d(plan, device, dtype)
+    if takes_star2d(plan, device):
+        return _emit_star2d(plan, device, dtype)
     return _emit_const(plan, device, dtype)
 
 

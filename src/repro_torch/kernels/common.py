@@ -32,6 +32,7 @@ import torch
 KERNEL_REGIONS = {
     "sptc_spmm_fused": "sptc_mma_kernel",
     "sptc_spmm_rows2d": "sptc_rows2d_kernel",
+    "sptc_spmm_star2d": "sptc_star2d_kernel",
     "sptc_spmm_windows": "sptc_spmm_kernel",
     "windows_gemm": "windows_gemm_kernel",
     "stencil2d": "stencil2d_kernel",

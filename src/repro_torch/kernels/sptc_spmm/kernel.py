@@ -3,7 +3,8 @@
 ``csrc/sptc_fused.cu`` replaces ``repro/kernels/sptc_spmm/kernel.py::
 _fused_kernel``; ``csrc/sptc_spmm.cu`` replaces the v1 ``_sptc_kernel``;
 ``csrc/sptc_rows2d.cu`` runs every row op of a 2-D "rows" plan in one
-launch, where the reference runs ``_fused_kernel`` once per row op.
+launch, and ``csrc/sptc_star2d.cu`` both axis ops of a 2-D "star-axis"
+plan, where the reference runs ``_fused_kernel`` once per row op.
 The callers (:mod:`repro_torch.kernels.sptc_spmm.ops`) check the arguments
 and allocate the outputs; this module only launches.
 """
@@ -67,6 +68,26 @@ def sptc_rows2d_launch(xs: torch.Tensor, y: torch.Tensor,
             frags.a.shape[0], lead_bits, frags.ksteps, 0 if tf32 else 1,
             DTYPE_CODES[xs.dtype], stream_ptr(xs.device))
     check(status, "spider_sptc_rows2d")
+
+
+def sptc_star2d_launch(xs: torch.Tensor, y: torch.Tensor,
+                       frags: "Fragments", *, radius: int, L: int,
+                       tf32: bool) -> None:
+    """Launch on the current stream; returns without synchronising.
+
+    ``xs`` (B, H + 2r, W + 2r) with a unit column stride, ``y`` (B, H, W)
+    contiguous; ``frags`` the two axis ops' tables of the route stacked on
+    the leading axis, the leading axis's first.
+    """
+    lib = library()
+    b, h, w = y.shape
+    with torch.cuda.device(xs.device):
+        status = lib.spider_sptc_star2d(
+            xs.data_ptr(), y.data_ptr(), frags.a.data_ptr(),
+            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1), radius,
+            L, frags.ksteps, 0 if tf32 else 1, DTYPE_CODES[xs.dtype],
+            stream_ptr(xs.device))
+    check(status, "spider_sptc_star2d")
 
 
 def sptc_spmm_launch(values: torch.Tensor, meta: torch.Tensor,

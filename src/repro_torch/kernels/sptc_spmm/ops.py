@@ -4,7 +4,9 @@
 (the engine calls it in its constructor); :func:`sptc_spmm_fused` applies
 them along the rows of a 2-D input.  :func:`rows_operand` stacks the
 operands of a 2-D "rows" decomposition, and :func:`sptc_spmm_rows2d`
-applies all of them to a batch of haloed grids in one launch.
+applies all of them to a batch of haloed grids in one launch;
+:func:`star_operand` and :func:`sptc_spmm_star2d` do the same for the two
+axis operands of a 2-D "star-axis" decomposition.
 :func:`sptc_spmm` / :func:`sptc_spmm_windows` are the v1 compressed SpMM
 over a pre-swapped RHS.  On a CUDA tensor a wrapper launches its
 kernel or raises; it takes the plain torch version only for a tensor that
@@ -24,10 +26,12 @@ from repro_torch.kernels.common import region
 from repro_torch.kernels.sptc_spmm import fragments as fr
 from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
                                                   sptc_rows2d_launch,
-                                                  sptc_spmm_launch)
+                                                  sptc_spmm_launch,
+                                                  sptc_star2d_launch)
 from repro_torch.kernels.sptc_spmm.ref import (sptc_fused_ref,
                                                sptc_rows2d_ref,
-                                               sptc_spmm_windows_ref)
+                                               sptc_spmm_windows_ref,
+                                               sptc_star2d_ref)
 
 if TYPE_CHECKING:
     from repro_torch.core.sparsify import Sparse24
@@ -220,10 +224,20 @@ def rows_operand(ops: Sequence[FusedOperand], leads: Sequence[int],
                          f"1-{ROWS2D_MAX_OPS} row ops and leads within a "
                          f"halo <= {ROWS2D_MAX_HALO}; got L={L}, "
                          f"leads={leads}, halo={halo}")
+    tf32, bf16 = _stacked(ops)
+    return RowsOperand(ops=ops, leads=leads, halo=int(halo), tf32=tf32,
+                       bf16=bf16)
+
+
+def _stacked(ops: Sequence[FusedOperand]
+             ) -> Tuple[Optional[fr.Fragments], fr.Fragments]:
+    """The ops' tables of each route stacked on the leading axis (the
+    TF32 ones where every op has them)."""
     first = ops[0].values
-    if any(o.values.shape[0] != L or o.values.dtype != first.dtype
+    if any(o.values.shape[0] != first.shape[0]
+           or o.values.dtype != first.dtype
            or o.values.device != first.device for o in ops):
-        raise ValueError("row operands differ in L, dtype or device")
+        raise ValueError("operands differ in L, dtype or device")
 
     def stack(frags: Sequence[fr.Fragments]) -> fr.Fragments:
         return fr.Fragments(a=torch.cat([f.a for f in frags]),
@@ -232,8 +246,31 @@ def rows_operand(ops: Sequence[FusedOperand], leads: Sequence[int],
 
     tf32 = (stack([o.tf32 for o in ops])  # type: ignore[misc]
             if all(o.tf32 is not None for o in ops) else None)
-    return RowsOperand(ops=ops, leads=leads, halo=int(halo), tf32=tf32,
-                       bf16=stack([o.bf16 for o in ops]))
+    return tf32, stack([o.bf16 for o in ops])
+
+
+def _check_grids(op: FusedOperand, xs: torch.Tensor,
+                 halo: int) -> Tuple[int, int, int]:
+    """Check a (B, H + halo, W + halo) batch of grids against an operand's
+    tables; returns (B, H, W)."""
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (B, H + halo, W + halo), got shape "
+                         f"{tuple(xs.shape)}")
+    if xs.dtype not in DTYPE_CODES:
+        raise TypeError(f"xs dtype {xs.dtype} not in {tuple(DTYPE_CODES)}")
+    if op.values.dtype != xs.dtype:
+        raise TypeError(f"operand dtype {op.values.dtype} != xs dtype "
+                        f"{xs.dtype}; build the operands in the input dtype")
+    if op.values.device != xs.device:
+        raise ValueError("operand tables and xs lie on different devices")
+    if xs.shape[2] > 1 and xs.stride(2) != 1:
+        raise ValueError("xs needs a unit column stride")
+    if xs.shape[1] < halo or xs.shape[2] < halo:
+        raise ValueError(f"xs of shape {tuple(xs.shape)} is smaller than "
+                         f"its halo of {halo}")
+    if xs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {xs.device}")
+    return xs.shape[0], xs.shape[1] - halo, xs.shape[2] - halo
 
 
 def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
@@ -246,30 +283,13 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
     summed in float32, in order, and rounded once: in float32 the sums of
     :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
     """
-    if xs.dim() != 3:
-        raise ValueError(f"xs must be (B, H + halo, W + halo), got shape "
-                         f"{tuple(xs.shape)}")
-    if xs.dtype not in DTYPE_CODES:
-        raise TypeError(f"xs dtype {xs.dtype} not in {tuple(DTYPE_CODES)}")
-    if rop.ops[0].values.dtype != xs.dtype:
-        raise TypeError(f"operand dtype {rop.ops[0].values.dtype} != xs dtype "
-                        f"{xs.dtype}; build the operands in the input dtype")
-    if rop.ops[0].values.device != xs.device:
-        raise ValueError("operand tables and xs lie on different devices")
-    if xs.shape[2] > 1 and xs.stride(2) != 1:
-        raise ValueError("xs needs a unit column stride")
-    b, h, w = xs.shape[0], xs.shape[1] - rop.halo, xs.shape[2] - rop.halo
-    if h < 0 or w < 0:
-        raise ValueError(f"xs of shape {tuple(xs.shape)} is smaller than "
-                         f"its halo of {rop.halo}")
+    b, h, w = _check_grids(rop.ops[0], xs, rop.halo)
     L = rop.L
     if xs.device.type == "cpu":
         with region("sptc_spmm_rows2d"):
             return sptc_rows2d_ref(
                 [(o.values, o.meta_words, o.star_fast) for o in rop.ops],
                 rop.leads, xs, halo=rop.halo, L=L)
-    if xs.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xs.device}")
     y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
     if y.numel() == 0:
         return y
@@ -283,6 +303,90 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
 
 
 sptc_spmm_rows2d.launches = 0    # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# both axis ops of a 2-D "star-axis" decomposition in one launch
+# ---------------------------------------------------------------------------
+
+#: the star kernel's widest operand: one 16-row M block
+STAR2D_MAX_L = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class StarOperand:
+    """Device tables of the two axis ops of a 2-D "star-axis"
+    decomposition.
+
+    ``ops``    (the leading axis's op, the last axis's op), each a
+               :class:`FusedOperand` (the plain version reads their
+               ``values`` and ``meta_words``);
+    ``radius`` r: the input carries 2r more rows and columns than the
+               output;
+    ``tf32``, ``bf16``  the two ops' tables of each route stacked on the
+               leading axis, (2, KS, 2, 32) and (2, KS, 32).
+    """
+
+    ops: Tuple[FusedOperand, FusedOperand]
+    radius: int
+    tf32: Optional[fr.Fragments]
+    bf16: fr.Fragments
+
+    @property
+    def L(self) -> int:
+        return self.ops[0].values.shape[0]
+
+
+def star2d_holds(L: int, radius: int) -> bool:
+    """Whether :func:`sptc_spmm_star2d` takes a radius-``radius`` star's
+    operands of width ``L``: even L from 2r + 2 to 16."""
+    return radius >= 1 and L % 2 == 0 and 2 * radius + 2 <= L <= STAR2D_MAX_L
+
+
+def star_operand(ops: Sequence[FusedOperand], radius: int) -> StarOperand:
+    """Stack the two axis ops' tables, the leading axis's first, for
+    :func:`sptc_spmm_star2d` (on their device, once)."""
+    ops = tuple(ops)
+    if len(ops) != 2:
+        raise ValueError(f"a 2-D star has two axis ops, got {len(ops)}")
+    L = ops[0].values.shape[0]
+    if not star2d_holds(L, radius):
+        raise ValueError(f"sptc_spmm_star2d takes even L from 2r + 2 to "
+                         f"{STAR2D_MAX_L}; got L={L}, r={radius}")
+    tf32, bf16 = _stacked(ops)
+    return StarOperand(ops=ops, radius=int(radius),  # type: ignore[arg-type]
+                       tf32=tf32, bf16=bf16)
+
+
+def sptc_spmm_star2d(sop: StarOperand, xs: torch.Tensor) -> torch.Tensor:
+    """Both axis ops at once: ``y[b, i, j] = op_0(xs[b, :, j + r])[i] +
+    op_1(xs[b, i + r, :])[j]``.
+
+    ``xs`` is the raw (B, H + 2r, W + 2r) batch of haloed grids, any batch
+    and row stride, unit column stride: read where it lies.  Returns the
+    contiguous (B, H, W) interior in ``xs.dtype``, the two applications
+    summed in float32 and rounded once: in float32 the sums of
+    :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
+    """
+    r = sop.radius
+    b, h, w = _check_grids(sop.ops[0], xs, 2 * r)
+    if xs.device.type == "cpu":
+        with region("sptc_spmm_star2d"):
+            return sptc_star2d_ref(
+                [(o.values, o.meta_words, o.star_fast) for o in sop.ops], xs,
+                radius=r, L=sop.L)
+    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
+    if y.numel() == 0:
+        return y
+    tf32 = xs.dtype == torch.float32
+    with region("sptc_spmm_star2d"):
+        sptc_star2d_launch(xs, y, sop.tf32 if tf32 else sop.bf16, radius=r,
+                           L=sop.L, tf32=tf32)
+    sptc_spmm_star2d.launches += 1
+    return y
+
+
+sptc_spmm_star2d.launches = 0    # type: ignore[attr-defined]
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ own steps with torch ops — unpack the 2-bit metadata from the packed words,
 apply the closed-form strided swap, read the window rows, multiply-add in
 float32 — so the packing is tested too, not only the stencil it encodes.
 :func:`sptc_rows2d_ref` (``csrc/sptc_rows2d.cu``) sums those steps over the
-row ops of a 2-D "rows" decomposition.
+row ops of a 2-D "rows" decomposition, :func:`sptc_star2d_ref`
+(``csrc/sptc_star2d.cu``) over the two axis ops of a 2-D "star-axis" one.
 
 :func:`sptc_spmm_ref` / :func:`sptc_spmm_windows_ref` (``csrc/sptc_spmm.cu``,
 the v1 compressed SpMM) are ``core/sptc.py``'s ``sptc_matmul``, the second
@@ -103,6 +104,28 @@ def sptc_rows2d_ref(ops: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
         acc += _fused_sums(values, meta_words, x2d, n_out=w, L=L,
                            star_fast=star_fast)
     return acc.reshape(w, b, h).permute(1, 2, 0).to(xs.dtype).contiguous()
+
+
+def sptc_star2d_ref(ops: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
+                    xs: torch.Tensor, *, radius: int, L: int) -> torch.Tensor:
+    """y[b, i, j] = (op 0 down column j + r) + (op 1 along row i + r).
+
+    ``ops`` holds the leading axis's and the last axis's (values,
+    meta_words, star_fast), as :func:`sptc_fused_ref` reads them; ``xs`` is
+    the raw (B, H + 2r, W + 2r) grid.  The two applications are summed in
+    float32 and rounded once: (B, H, W) in ``xs.dtype``.
+    """
+    (v0, m0, f0), (v1, m1, f1) = ops
+    b, hin, win = xs.shape
+    r = radius
+    h, w = hin - 2 * r, win - 2 * r
+    lead = xs[:, :, r:r + w].permute(1, 0, 2).reshape(hin, b * w)
+    s0 = _fused_sums(v0, m0, lead, n_out=h, L=L, star_fast=f0)
+    last = xs[:, r:r + h, :].permute(2, 0, 1).reshape(win, b * h)
+    s1 = _fused_sums(v1, m1, last, n_out=w, L=L, star_fast=f1)
+    y = (s0.reshape(h, b, w).permute(1, 0, 2)
+         + s1.reshape(w, b, h).permute(1, 2, 0))
+    return y.to(xs.dtype).contiguous()
 
 
 def _fused_sums(values: torch.Tensor, meta_words: torch.Tensor,

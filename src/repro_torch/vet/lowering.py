@@ -45,8 +45,10 @@ Rules (the reference's rule ids where the meaning carries over):
   pallas-fused-program    cuda_sptc: ``sptc_spmm_fused`` regions != one per
                           1-D application, or, for a 2-D ``rows`` plan the
                           rows kernel takes, ``sptc_spmm_rows2d`` regions
-                          != one for its R applications (on the card: or
-                          != the region kernels launched)
+                          != one for its R applications, or, for a 2-D
+                          ``star-axis`` plan the star kernel takes,
+                          ``sptc_spmm_star2d`` regions != one for its two
+                          (on the card: or != the region kernels launched)
   pallas-fused-gather     gathers outside the regions > budget ×
                           applications (the shipped kernel shows 0)
   pallas-fused-overhead   scatters outside, or more gathers or copies
@@ -106,9 +108,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.engine import (StencilEngine, _emit_const,
-                                     _emit_rows2d, _operand_fn,
-                                     apply_sptc_v1, kernel_launches,
-                                     takes_rows2d)
+                                     _emit_rows2d, _emit_star2d,
+                                     _operand_fn, apply_sptc_v1,
+                                     kernel_launches, takes_rows2d,
+                                     takes_star2d)
 from repro_torch.core.stencil import StencilSpec, make_stencil
 from repro_torch.core.transform import decompose_rows, lower_spec
 from repro_torch.device import Device, resolve_device
@@ -123,6 +126,8 @@ BACKEND_KERNEL = {"gemm": "stencil_gemm", "sptc": "sptc_spmm"}
 FUSED_KERNEL = "sptc_spmm_fused"
 #: the one program of a 2-D "rows" plan on cuda_sptc
 ROWS_KERNEL = "sptc_spmm_rows2d"
+#: the one program of a 2-D "star-axis" plan on cuda_sptc
+STAR_KERNEL = "sptc_spmm_star2d"
 
 #: op classes counted outside the kernel regions (first match wins)
 OP_CLASSES: Dict[str, Tuple[str, ...]] = {
@@ -198,12 +203,15 @@ def _finding(cfg: VetConfig, rule: str, symbol: str, message: str,
                    path=path, line=0, symbol=symbol, message=message)
 
 
-def fused_programs(spec: StencilSpec) -> Dict[str, int]:
-    """The programs a cuda_sptc engine's call of ``spec`` runs, by region
-    (``engine.kernel_launches``): one ``sptc_spmm_rows2d`` for the R
-    applications of a 2-D ``rows`` plan the rows kernel takes, else one
+def fused_programs(spec: StencilSpec,
+                   device: Device = None) -> Dict[str, int]:
+    """The programs a cuda_sptc engine's call of ``spec`` runs on ``device``
+    (``None``: the card), by region (``engine.kernel_launches``): one
+    ``sptc_spmm_rows2d`` for the R applications of a 2-D ``rows`` plan the
+    rows kernel takes, one ``sptc_spmm_star2d`` for the two of a 2-D
+    ``star-axis`` plan the star kernel takes there, else one
     ``sptc_spmm_fused`` per 1-D application."""
-    return kernel_launches(lower_spec(spec, backend="cuda_sptc"))
+    return kernel_launches(lower_spec(spec, backend="cuda_sptc"), device)
 
 
 def n_applications(spec: StencilSpec, fused: bool) -> int:
@@ -326,6 +334,7 @@ def _wrappers() -> Dict[str, Callable]:
     from repro_torch.kernels.stencil_gemm import ops as gemm_ops
     return {"sptc_spmm_fused": sptc_ops.sptc_spmm_fused,
             "sptc_spmm_rows2d": sptc_ops.sptc_spmm_rows2d,
+            "sptc_spmm_star2d": sptc_ops.sptc_spmm_star2d,
             "sptc_spmm_windows": sptc_ops.sptc_spmm_windows,
             "windows_gemm": gemm_ops.windows_gemm,
             "stencil2d": direct_ops.stencil2d,
@@ -558,22 +567,24 @@ def sparse_parity(cfg: VetConfig, dense: Dict[str, dict],
 
 def check_fused(cfg: VetConfig, symbol: str, counts: Dict[str, int],
                 regions: Dict[str, int], dense: Dict[str, int],
-                spec: StencilSpec) -> List[Finding]:
-    """The fused rules for one audited call of ``spec`` against the dense
-    cuda_gemm engine's counts on the same probe: the call enters the
-    regions :func:`fused_programs` names, and no more gathers, scatters or
-    copies than its 1-D applications allow."""
+                spec: StencilSpec, device: Device = None) -> List[Finding]:
+    """The fused rules for one audited call of ``spec`` on ``device``
+    (``None``: the card) against the dense cuda_gemm engine's counts on the
+    same probe: the call enters the regions :func:`fused_programs` names,
+    and no more gathers, scatters or copies than its 1-D applications
+    allow."""
     findings: List[Finding] = []
     budget = cfg.lowering_budgets.get("cuda_sptc", {})
     napps = n_applications(spec, fused=False)
-    want = fused_programs(spec)
-    got = {k: regions.get(k, 0) for k in (FUSED_KERNEL, ROWS_KERNEL)}
+    want = fused_programs(spec, device)
+    got = {k: regions.get(k, 0)
+           for k in (FUSED_KERNEL, ROWS_KERNEL, STAR_KERNEL)}
     if got != {k: want.get(k, 0) for k in got}:
         findings.append(_finding(
             cfg, "pallas-fused-program", symbol,
             f"expected fused program(s) {want} (one {FUSED_KERNEL} per 1-D "
-            f"application, or one {ROWS_KERNEL} for a 2-D box's), the call "
-            f"ran {got}"))
+            f"application, one {ROWS_KERNEL} for a 2-D box's or one "
+            f"{STAR_KERNEL} for a 2-D star's), the call ran {got}"))
     elif "kernels" in counts and counts["kernels"] != sum(got.values()):
         findings.append(_finding(
             cfg, "pallas-fused-program", symbol,
@@ -637,7 +648,7 @@ def audit_fused(cfg: VetConfig, fn: Callable[[torch.Tensor], object],
     dense = audit_call(StencilEngine(spec, backend="cuda_gemm",
                                      device=x.device), x)
     findings = check_fused(cfg, symbol, got.counts, got.regions,
-                           dense.counts, spec)
+                           dense.counts, spec, x.device)
     findings += check_device_ops(cfg, symbol, got.counts)
     findings += check_output(cfg, symbol, got.out, spec, x)[0]
     return findings, got, dense
@@ -666,22 +677,26 @@ def planted_gather(spec: StencilSpec, device: Device = None,
     through a standalone index (the identity order, so the answer holds):
     the fault the fused rules exist to catch.  A program is each op's
     ``sptc_spmm_fused``, or the one ``sptc_spmm_rows2d`` of a 2-D ``rows``
-    plan the rows kernel takes.  With ``in_region`` the gather runs inside
-    the program's region, as a wrapper that gathered before its launch
-    would run it; only the card's audit, which walks into regions, can see
-    it there."""
+    plan the rows kernel takes, or the one ``sptc_spmm_star2d`` of a 2-D
+    ``star-axis`` plan the star kernel takes on ``device``.  With
+    ``in_region`` the gather runs inside the program's region, as a wrapper
+    that gathered before its launch would run it; only the card's audit,
+    which walks into regions, can see it there."""
     device = resolve_device(device)
     plan = lower_spec(spec, backend="cuda_sptc")
-    if takes_rows2d(plan):
-        rows_fn = _emit_rows2d(plan, device, torch.float32)
+    one = ((_emit_rows2d, ROWS_KERNEL) if takes_rows2d(plan) else
+           (_emit_star2d, STAR_KERNEL) if takes_star2d(plan, device)
+           else None)
+    if one is not None:
+        one_fn, name = one[0](plan, device, torch.float32), one[1]
 
-        def gathered_rows(x: torch.Tensor) -> torch.Tensor:
+        def gathered_one(x: torch.Tensor) -> torch.Tensor:
             rows = torch.arange(x.shape[0], device=x.device)
             if not in_region:
-                return rows_fn(x[rows][None])[0]
-            with region(ROWS_KERNEL):
-                return rows_fn(x[rows][None])[0]
-        return gathered_rows
+                return one_fn(x[rows][None])[0]
+            with region(name):
+                return one_fn(x[rows][None])[0]
+        return gathered_one
 
     def gathered_operand(plan, i: int, device: torch.device,
                          dtype: torch.dtype):

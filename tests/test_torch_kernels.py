@@ -409,15 +409,18 @@ def test_rows2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
 
 @pytest.mark.parametrize("shape,ndim,r,dims", [("box", 1, 2, (70,)),
                                                ("star", 2, 1, (17, 21)),
+                                               ("star", 3, 1, (6, 7, 9)),
                                                ("box", 3, 1, (6, 7, 9))])
 def test_other_sptc_engines_keep_a_fused_region_per_row_op(shape, ndim, r,
                                                            dims):
-    """The 1-D (``single``), star (``star-axis``) and 3-D (``rows``)
-    engines on cuda_sptc keep one ``sptc_spmm_fused`` region per row op."""
-    from repro_torch.core.engine import takes_rows2d
+    """The 1-D (``single``), star (``star-axis``: a 3-D one, and a 2-D one
+    on the CPU) and 3-D (``rows``) engines on cuda_sptc keep one
+    ``sptc_spmm_fused`` region per row op."""
+    from repro_torch.core.engine import takes_rows2d, takes_star2d
     spec = make_stencil(shape, ndim, r, seed=2)
     eng = StencilEngine(spec, "cuda_sptc", device="cpu")
     assert not takes_rows2d(eng.plan_ir)
+    assert not takes_star2d(eng.plan_ir, eng.device)
     x = torch.randn(tuple(s + 2 * r for s in dims))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -425,6 +428,7 @@ def test_other_sptc_engines_keep_a_fused_region_per_row_op(shape, ndim, r,
     names = [e.name for e in prof.events()]
     assert names.count("sptc_spmm_fused") == len(eng.plan_ir.decompose.ops)
     assert "sptc_spmm_rows2d" not in names
+    assert "sptc_spmm_star2d" not in names
     np.testing.assert_allclose(
         _np(got), _np(StencilEngine(spec, "direct", device="cpu")(x)),
         **F32_TOL)
@@ -448,7 +452,7 @@ def test_kernel_launches_name_each_wrapper_a_call_enters(spec, backend):
         eng.apply_batched(xs)
     entered = Counter(e.name for e in prof.events()
                       if e.name in KERNEL_REGIONS)
-    assert dict(entered) == kernel_launches(eng.plan_ir)
+    assert dict(entered) == kernel_launches(eng.plan_ir, eng.device)
 
 
 def test_sptc_spmm_rows2d_wrapper_checks():
@@ -474,6 +478,135 @@ def test_sptc_spmm_rows2d_wrapper_checks():
         sptc_ops.sptc_spmm_rows2d(rop, x.transpose(1, 2))
     with pytest.raises(ValueError, match="smaller than its halo"):
         sptc_ops.sptc_spmm_rows2d(rop, x[:, :1])
+
+
+# ---------------------------------------------------------------------------
+# a 2-D star on cuda_sptc: both axis ops in one sptc_spmm_star2d call
+# ---------------------------------------------------------------------------
+
+#: (r, L): the paper suite's 2-D stars at every even L from 2r + 2 to 16
+STAR2D_CASES = tuple((r, L) for r in (1, 2, 3)
+                     for L in range(2 * r + 2, 17, 2))
+#: (B, H, W, layout): batches of one and three, a row-strided view of a
+#: larger batch and a transposed view (which the engine copies first)
+STAR2D_SHAPES = ((1, 13, 37, "contiguous"), (3, 5, 70, "contiguous"),
+                 (3, 19, 29, "strided"), (2, 7, 16, "transposed"))
+
+
+def _star_operand(eng, device, dt):
+    """The star kernel's tables of a 2-D star engine's plan."""
+    from repro_torch.core.engine import star2d_operand
+    return star2d_operand(eng.plan_ir, device, dt)
+
+
+def _star_plain(sop, xs):
+    from repro_torch.kernels.sptc_spmm.ref import sptc_star2d_ref
+    return sptc_star2d_ref([(o.values, o.meta_words, o.star_fast)
+                            for o in sop.ops], xs, radius=sop.radius, L=sop.L)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,layout", STAR2D_SHAPES)
+@pytest.mark.parametrize("r,L", STAR2D_CASES)
+def test_star2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
+                                                   dtype):
+    """The star's cuda_sptc emission on the card, built on the CPU, runs
+    its two axis ops as one ``sptc_spmm_star2d`` region (the plain
+    version), no ``sptc_spmm_fused`` one and no glue span, and equals the
+    per-RowOp loop it replaces (the engine's emission on the CPU) and the
+    direct engine: in float32 the same sums in the same order as the loop,
+    bit for bit."""
+    from repro_torch.core.engine import _emit_const, _emit_star2d, \
+        takes_star2d
+    dt = getattr(torch, dtype)
+    cpu = torch.device("cpu")
+    spec = make_stencil("star", 2, r, seed=r)
+    eng = StencilEngine(spec, "cuda_sptc", L=L, device="cpu", dtype=dt)
+    assert takes_star2d(eng.plan_ir)
+    assert not takes_star2d(eng.plan_ir, cpu)
+    xs = _rows2d_input(r, b, h, w, layout, dt, cpu)
+    star = _emit_star2d(eng.plan_ir, cpu, dt)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = star(xs)
+    names = [e.name for e in prof.events()]
+    assert names.count("sptc_spmm_star2d") == 1
+    assert "sptc_spmm_fused" not in names
+    assert "engine.accumulate" not in names
+    assert names.count("engine.layout_copy") == (layout == "transposed")
+    assert got.shape == (b, h, w) and got.dtype == dt
+    unit = xs if xs.stride(2) == 1 else xs.contiguous()
+    assert torch.equal(got, _star_plain(_star_operand(eng, cpu, dt), unit))
+    loop = _emit_const(eng.plan_ir, cpu, dt)(xs)
+    assert torch.equal(
+        eng.apply_batched(xs) if b > 1 else eng(xs[0])[None], loop)
+    direct = torch.stack([StencilEngine(spec, "direct", device="cpu",
+                                        dtype=dt)(x) for x in xs])
+    tol = F32_TOL if dt == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(loop), **tol)
+    np.testing.assert_allclose(_np(got), _np(direct), **tol)
+    if dt == torch.float32:
+        assert torch.equal(got, loop)
+
+
+def test_takes_star2d_only_a_2d_star_axis_plan_on_cuda_sptc():
+    """The predicate reads the plan and the device: a 2-D ``star-axis``
+    plan on cuda_sptc with constant coefficients and an L the kernel holds,
+    on the card (a CUDA device, or ``None``), not on the CPU."""
+    import dataclasses
+
+    from repro_torch.core.engine import kernel_launches, takes_star2d
+    from repro_torch.core.ir import BackendEmit
+    from repro_torch.core.transform import lower_spec
+    star2, star3 = make_stencil("star", 2, 2, seed=1), \
+        make_stencil("star", 3, 1, seed=1)
+    plan = lower_spec(star2, backend="cuda_sptc")
+    assert takes_star2d(plan)
+    assert kernel_launches(plan) == {"sptc_spmm_star2d": 1}
+    assert takes_star2d(plan, "cuda") and takes_star2d(plan, "cuda:1")
+    assert not takes_star2d(plan, "cpu")
+    assert kernel_launches(plan, "cpu") == {"sptc_spmm_fused": 2}
+    assert all(takes_star2d(lower_spec(star2, backend="cuda_sptc", L=L))
+               for L in range(6, 17, 2))
+    assert not takes_star2d(lower_spec(star2, backend="cuda_sptc", L=18))
+    assert not takes_star2d(lower_spec(star3, backend="cuda_sptc"))
+    assert not takes_star2d(lower_spec(star2, backend="cuda_gemm"))
+    assert not takes_star2d(lower_spec(star2, backend="sptc"))
+    rows = lower_spec(star2, backend="cuda_sptc", star_fast_path=False)
+    assert rows.decompose.mode == "rows" and not takes_star2d(rows)
+    assert kernel_launches(rows) == {"sptc_spmm_rows2d": 1}
+    assert kernel_launches(rows, "cpu") == {"sptc_spmm_rows2d": 1}
+    # a plan that carries variable coefficients keeps its emission
+    var = dataclasses.replace(plan, stages=tuple(
+        dataclasses.replace(s, coefficient_mode="var")
+        if isinstance(s, BackendEmit) else s for s in plan.stages))
+    assert not takes_star2d(var)
+
+
+def test_sptc_spmm_star2d_wrapper_checks():
+    spec = make_stencil("star", 2, 1, seed=1)
+    eng = StencilEngine(spec, "cuda_sptc", device="cpu")
+    sop = _star_operand(eng, torch.device("cpu"), torch.float32)
+    assert (sop.L, sop.radius) == (4, 1)
+    assert sptc_ops.star2d_holds(8, 3) and sptc_ops.star2d_holds(16, 3)
+    assert not sptc_ops.star2d_holds(6, 3)           # L < 2r + 2
+    assert not sptc_ops.star2d_holds(18, 1)          # one M block
+    assert not sptc_ops.star2d_holds(7, 1)           # odd L
+    with pytest.raises(ValueError, match="two axis ops"):
+        sptc_ops.star_operand(sop.ops[:1], 1)
+    with pytest.raises(ValueError, match="even L from 2r"):
+        sptc_ops.star_operand(sop.ops, 2)
+    x = torch.randn(2, 10, 12)
+    with pytest.raises(ValueError, match="B, H"):
+        sptc_ops.sptc_spmm_star2d(sop, x[0])
+    with pytest.raises(TypeError, match="dtype"):
+        sptc_ops.sptc_spmm_star2d(sop, x.double())
+    with pytest.raises(TypeError, match="operand dtype"):
+        sptc_ops.sptc_spmm_star2d(sop, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="unit column stride"):
+        sptc_ops.sptc_spmm_star2d(sop, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="smaller than its halo"):
+        sptc_ops.sptc_spmm_star2d(sop, x[:, :1])
 
 
 # ---------------------------------------------------------------------------
@@ -823,3 +956,57 @@ def test_cuda_sptc_rows2d_matches_plain(cuda_device, r, L, b, h, w, layout,
         loop = _emit_const(eng.plan_ir, cuda_device, dt)(xs)
         torch.cuda.synchronize()
         assert torch.equal(got, loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,layout",
+                         STAR2D_SHAPES + ((1, 9, 44, "offset"),
+                                          (2, 130, 1001, "contiguous")))
+@pytest.mark.parametrize("r,L", STAR2D_CASES)
+def test_cuda_sptc_star2d_matches_plain(cuda_device, r, L, b, h, w, layout,
+                                        dtype):
+    """The star kernel against its plain version: odd shapes, a batch,
+    strided and offset views (every copy width), several runs, and a
+    transposed view through the engine (which copies it first); in float32
+    bit for bit the per-RowOp loop it replaces."""
+    dt = getattr(torch, dtype)
+    spec = make_stencil("star", 2, r, seed=r)
+    eng = StencilEngine(spec, "cuda_sptc", L=L, device=cuda_device, dtype=dt)
+    sop = _star_operand(eng, cuda_device, dt)
+    xs = _rows2d_input(r, b, h, w, layout, dt, cuda_device)
+    unit = xs if xs.stride(2) == 1 else xs.contiguous()
+    before = sptc_ops.sptc_spmm_star2d.launches
+    got = sptc_ops.sptc_spmm_star2d(sop, unit)
+    assert sptc_ops.sptc_spmm_star2d.launches == before + 1
+    want = _star_plain(sop, xs)
+    torch.cuda.synchronize()
+    _close(got, want, dt)
+    _close(eng.apply_batched(xs), want, dt)
+    if dt == torch.float32:
+        # each axis op summed as the fused kernel sums it, the two added in
+        # float32 as the per-RowOp loop adds them: the same bits
+        from repro_torch.core.engine import _emit_const
+        loop = _emit_const(eng.plan_ir, cuda_device, dt)(xs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_cuda_sptc_star2d_planted_fault_fails(cuda_device, r):
+    """The kernel's tables of the two axis operands swapped, so each axis
+    runs the other's weights: the same check must fail."""
+    import dataclasses
+    spec = make_stencil("star", 2, r, seed=r)
+    sop = _star_operand(StencilEngine(spec, "cuda_sptc", device=cuda_device),
+                        cuda_device, torch.float32)
+    swapped = sptc_ops.star_operand(sop.ops[::-1], r)
+    bad = dataclasses.replace(sop, tf32=swapped.tf32, bf16=swapped.bf16)
+    xs = _rows2d_input(r, 2, 41, 77, "contiguous", torch.float32,
+                       cuda_device)
+    want = _star_plain(sop, xs)
+    got = sptc_ops.sptc_spmm_star2d(bad, xs)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _close(got, want, torch.float32)

@@ -88,23 +88,49 @@ def _glue(eng, x, steps):
     return y, spans
 
 
-def test_star_iterate_records_the_row_op_glue_inside_apply():
-    """A 2-D star on cuda_sptc (``star-axis``): per step one copy of the
-    last-axis op's transposed input and three accumulator spans (the zero
-    fill and two adds), each under ``engine.apply``; the spans change no
-    bit of the output."""
-    spec = make_stencil("star", 2, 3, seed=11)
+@pytest.mark.parametrize("ndim,r,shape,copies,adds", [
+    (2, 3, (30, 34), 4, 12), (3, 2, (10, 12, 14), 0, 16)])
+def test_star_iterate_records_the_row_op_glue_inside_apply(ndim, r, shape,
+                                                           copies, adds):
+    """A star on cuda_sptc run by the per-RowOp loop (``star-axis``; a 2-D
+    one on the CPU): per step a copy of the last-axis op's transposed input
+    on a 2-D grid (none on a 3-D one: each axis's slice is copied by the
+    reshape that folds the other axes into its columns, which leaves it
+    contiguous) and 1 + d accumulator spans (the zero fill and the adds),
+    each under ``engine.apply``; the spans change no bit of the output."""
+    spec = make_stencil("star", ndim, r, seed=11)
     eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
     assert eng.plan_ir.decompose.mode == "star-axis"
-    x = lowering.probe_input((30, 34), CPU)
+    x = lowering.probe_input(shape, CPU)
     plain = eng.iterate(x, 4)
     y, spans = _glue(eng, x, 4)
     names = [n for n, _ in spans]
-    assert names.count("engine.layout_copy") == 4
-    assert names.count("engine.accumulate") == 12
+    assert names.count("engine.layout_copy") == copies
+    assert names.count("engine.accumulate") == adds
     for _, up in spans:
         assert up[:2] == ["engine.apply", "engine.iterate"]
     torch.testing.assert_close(y, plain, rtol=0, atol=0)
+
+
+def test_2d_star_call_is_one_star_kernel_region_and_no_glue():
+    """A 2-D star on cuda_sptc, emitted as on the card (the star kernel's
+    plain version here), enters ``sptc_spmm_star2d`` once a call,
+    ``sptc_spmm_fused`` never, and opens no glue span; its steps equal the
+    per-RowOp loop's, which the CPU runs, bit for bit."""
+    from repro_torch.core.engine import _emit_star2d
+    spec = make_stencil("star", 2, 3, seed=11)
+    eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
+    x = lowering.probe_input((30, 34), CPU)
+    loop = eng.iterate(x, 4)
+    eng._fn = _emit_star2d(eng.plan_ir, CPU, torch.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = eng.iterate(x, 4)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert names.count("sptc_spmm_star2d") == names.count("engine.apply") == 4
+    assert "sptc_spmm_fused" not in names
+    assert "engine.layout_copy" not in names
+    assert "engine.accumulate" not in names
+    torch.testing.assert_close(y, loop, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("spec,shape", [(("box", 2, 1), (18, 18)),

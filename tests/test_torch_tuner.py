@@ -331,7 +331,7 @@ def test_batch_runs_one_application_per_row_op(monkeypatch, backend, shape,
     """A (B, *spatial) batch costs as many 1-D applications as one job:
     the batch folds into the columns of each row op.  A 2-D box on
     cuda_sptc runs all its row ops, for the whole batch, as one rows-kernel
-    call."""
+    call, and on the card a 2-D star as one star-kernel call."""
     calls = []
     for name in ("_op_cuda_sptc", "_op_cuda_gemm", "_op_sptc", "_op_gemm"):
         fn = getattr(engine, name)
@@ -339,16 +339,18 @@ def test_batch_runs_one_application_per_row_op(monkeypatch, backend, shape,
                             lambda *a, _fn=fn, **k: calls.append(1) or
                             _fn(*a, **k))
     rows = []
-    monkeypatch.setattr(engine, "sptc_spmm_rows2d",
-                        lambda *a, _fn=engine.sptc_spmm_rows2d:
-                        rows.append(1) or _fn(*a))
+    for name in ("sptc_spmm_rows2d", "sptc_spmm_star2d"):
+        monkeypatch.setattr(engine, name,
+                            lambda *a, _fn=getattr(engine, name):
+                            rows.append(1) or _fn(*a))
     _, spec = _specs(shape, ndim, r, seed=3)
     eng = engine.StencilEngine(spec, backend, device=CPU)
     dims = (70,) if ndim == 1 else (17, 21)
     xs = torch.as_tensor(np.stack([_input(spec, dims, seed=i)
                                    for i in range(4)]))
     got = eng.apply_batched(xs)
-    if engine.takes_rows2d(eng.plan_ir):
+    if engine.takes_rows2d(eng.plan_ir) or engine.takes_star2d(eng.plan_ir,
+                                                               eng.device):
         assert (len(calls), len(rows)) == (0, 1)
     else:
         assert (len(calls), len(rows)) == (len(eng.plan_ir.decompose.ops), 0)

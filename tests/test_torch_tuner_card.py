@@ -90,7 +90,7 @@ def test_batch_of_four_launches_once_per_row_op(cuda_device, backend, shape,
     # as many launches as one job: one of the direct kernel, and of the
     # rows kernel for a 2-D box on cuda_sptc; one a row op of the other
     # matrix kernels
-    want = kernel_launches(eng.plan_ir)
+    want = kernel_launches(eng.plan_ir, eng.device)
     assert {n: fn.launches for n, fn in WRAPPERS.items()} == \
         {n: want.get(n, 0) for n in WRAPPERS}
     direct = StencilEngine(spec, "direct", device=cuda_device)

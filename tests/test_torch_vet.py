@@ -339,8 +339,10 @@ def test_products_equal_the_reference_dots(backend):
 
 
 def test_fused_regions_equal_the_reference_pallas_calls():
-    # one program per reference pallas_call, except a 2-D box: its R
-    # pallas_calls (one per row op) are the one sptc_spmm_rows2d launch
+    # one program per reference pallas_call, except on a 2-D grid: a box's
+    # R pallas_calls (one per row op) are the one sptc_spmm_rows2d launch;
+    # on the card a star's two (one per axis) are the one sptc_spmm_star2d
+    # launch, on the CPU they stay its two
     ref_fs, ref_probes = ref_lowering.analyze_pallas_fused(RefVetConfig())
     fs, probes = lowering.analyze_fused(VetConfig(), CPU)
     assert ref_fs == [] and fs == [], [f.format() for f in fs]
@@ -352,7 +354,10 @@ def test_fused_regions_equal_the_reference_pallas_calls():
         assert ref_probes[sym]["pallas_call"] == napps, sym
         want = ({lowering.ROWS_KERNEL: 1} if shape_kind == "box"
                 else {lowering.FUSED_KERNEL: napps})
-        assert lowering.fused_programs(spec) == want, sym
+        card = ({lowering.ROWS_KERNEL: 1} if shape_kind == "box"
+                else {lowering.STAR_KERNEL: 1})
+        assert lowering.fused_programs(spec, CPU) == want, sym
+        assert lowering.fused_programs(spec) == card, sym
         assert probes[sym]["programs"] == sum(want.values()), sym
         assert probes[sym]["gathers"] == ref_probes[sym]["gather"] == 0
 
@@ -645,8 +650,9 @@ def test_outside_device_ops_rule_on_synthetic_audits():
     cfg = VetConfig()
     rules = lambda c: [f.rule for f in lowering.check_device_ops(  # noqa: E731
         cfg, "s", c)]
-    # the card's counts of cuda_sptc star-2d1r 4 = 1 + 2 + 1 and box-2d1r
-    # 7 = 3 + 3 + 1, cuda_gemm star-2d1r 9 = 4 copies + 2 adds + 3 fills
+    # the card's counts of the per-RowOp loop on cuda_sptc (a 2-D star
+    # through it 4 = 1 + 2 + 1, a box 7 = 3 + 3 + 1), cuda_gemm star-2d1r
+    # 9 = 4 copies + 2 adds + 3 fills, and one launch with nothing around it
     for copies, adds, fills, ops, kernels in ((1, 2, 1, 4, 2), (3, 3, 1, 7, 3),
                                               (4, 2, 3, 9, 2), (0, 0, 0, 0, 1)):
         ok = _card_counts(copies=copies, adds=adds, fills=fills,
@@ -671,9 +677,10 @@ def test_planted_gather_and_v1_path_are_flagged(shape_kind):
         engine(x), StencilEngine(spec, "cuda_sptc", device="cpu")(x))
     fs, got, dense = lowering.audit_fused(VetConfig(), engine, spec, x, "p")
     napps = lowering.n_applications(spec, fused=False)
-    # one gather in front of each program: each row op's fused kernel, or
-    # the box's one rows kernel
-    programs = lowering.fused_programs(spec)
+    # one gather in front of each program: the box's one rows kernel, each
+    # of the star's axis ops' fused kernels (on the card its one star
+    # kernel)
+    programs = lowering.fused_programs(spec, CPU)
     assert got.counts["gathers"] == sum(programs.values())
     assert dense.counts["gathers"] == 0
     assert {f.rule for f in fs} == {"pallas-fused-overhead"}
@@ -732,7 +739,7 @@ def test_outside_counts_do_not_depend_on_size(backend):
             tuple(s + 2 * r for s in dims), CPU)).counts for dims in shapes]
         assert counts[0] == counts[1], (spec.name, counts)
         # a cuda_sptc 2-D box runs its row ops as one rows-kernel program
-        want = sum(kernel_launches(eng.plan_ir).values())
+        want = sum(kernel_launches(eng.plan_ir, eng.device).values())
         assert counts[0]["programs"] == want
 
 
