@@ -2780,8 +2780,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.core.engine import (StencilEngine, apply_sptc_v1,
-                                         rows2d_operand, star2d_operand,
-                                         takes_rows2d, takes_star2d,
+                                         grid_kernel, grid_operand,
                                          tile_windows)
     from repro_torch.core.sparsify import sparsify_stencil_kernel
     from repro_torch.core.sptc import sptc_matmul_dense_equiv
@@ -2918,7 +2917,7 @@ def main() -> int:
         for dt in (f32, torch.bfloat16):
             tol = TOL if dt == f32 else TOL_BF16
             for L in l_candidates(r):
-                rop = rows2d_operand(StencilEngine(
+                rop = grid_operand(StencilEngine(
                     box, "cuda_sptc", L=L, device=dev, dtype=dt).plan_ir,
                     dev, dt)
                 rops = [(o.values, o.meta_words, o.star_fast)
@@ -2931,7 +2930,7 @@ def main() -> int:
                                           _err(got, want, tol))
                     cases["rows2d"] += 1
             for L in range(2 * r + 2, 17, 2):
-                sop = star2d_operand(StencilEngine(
+                sop = grid_operand(StencilEngine(
                     star, "cuda_sptc", L=L, device=dev, dtype=dt).plan_ir,
                     dev, dt)
                 sops = [(o.values, o.meta_words, o.star_fast)
@@ -2944,9 +2943,9 @@ def main() -> int:
                     cases["star2d"] += 1
     # planted fault: the row offsets of the box's row ops reversed, so
     # each op reads another op's rows; the same check must fail
-    rop = rows2d_operand(StencilEngine(make_stencil("box", 2, 1, seed=1),
-                                       "cuda_sptc", device=dev).plan_ir,
-                         dev, f32)
+    rop = grid_operand(StencilEngine(make_stencil("box", 2, 1, seed=1),
+                                     "cuda_sptc", device=dev).plan_ir,
+                       dev, f32)
     xs = randn(2, 41, 77, seed=98)
     want = sptc_rows2d_ref([(o.values, o.meta_words, o.star_fast)
                             for o in rop.ops], rop.leads, xs, halo=rop.halo,
@@ -2960,9 +2959,9 @@ def main() -> int:
     results["rows2d_planted_fault_rel_err"] = fault
     # planted fault: the star kernel's tables of its two axis operands
     # swapped, so each axis runs the other's weights
-    sop = star2d_operand(StencilEngine(make_stencil("star", 2, 3, seed=3),
-                                       "cuda_sptc", device=dev).plan_ir,
-                         dev, f32)
+    sop = grid_operand(StencilEngine(make_stencil("star", 2, 3, seed=3),
+                                     "cuda_sptc", device=dev).plan_ir,
+                       dev, f32)
     swapped = sptc_ops.star_operand(sop.ops[::-1], sop.radius)
     xs = randn(2, 47, 83, seed=97)
     want = sptc_star2d_ref([(o.values, o.meta_words, o.star_fast)
@@ -3235,11 +3234,12 @@ def main() -> int:
         conv_w = torch.as_tensor(np.asarray(w1), dtype=f32,
                                  device=dev).reshape(1, 1, -1, 1)
         conv_in = x2d.reshape(1, 1, rows_in, c)
-        rows2d, star2d = takes_rows2d(plan), takes_star2d(plan)
+        one = grid_kernel(plan)
+        rows2d, star2d = one == "sptc_spmm_rows2d", one == "sptc_spmm_star2d"
         if rows2d:
             # the engine's one launch on the haloed grid where it lies, with
             # its own tables; the fused kernel is not on this spec's path
-            rop = rows2d_operand(plan, dev, f32)
+            rop = grid_operand(plan, dev, f32)
             rops = [(o.values, o.meta_words, o.star_fast) for o in rop.ops]
             xs = x[None]
             app = {"rows2d": (
@@ -3260,9 +3260,9 @@ def main() -> int:
             # the engine's one launch on the haloed grid where it lies, and
             # beside it the same star lowered as a rows plan (R = 2r + 1 row
             # ops) on the rows kernel
-            sop = star2d_operand(plan, dev, f32)
+            sop = grid_operand(plan, dev, f32)
             sops = [(o.values, o.meta_words, o.star_fast) for o in sop.ops]
-            rop = rows2d_operand(StencilEngine(
+            rop = grid_operand(StencilEngine(
                 spec, "cuda_sptc", star_fast_path=False, device=dev).plan_ir,
                 dev, f32)
             rops = [(o.values, o.meta_words, o.star_fast) for o in rop.ops]

@@ -38,13 +38,13 @@ plan on the card through one ``sptc_spmm_star2d`` launch: a super-batch
 costs as many kernel launches as one job.  Fused rows, variable coefficients and
 3-D ``cuda_direct`` loop over the jobs of a batch.
 
-Copies on ``cuda_sptc``: a 2-D ``rows`` plan (a box, or a star without its
-fast path) whose L and row ops the rows kernel holds
-(:func:`takes_rows2d`: even L <= 16), and on the card a 2-D ``star-axis``
-plan whose L the star kernel holds (:func:`takes_star2d`: even L from
-2r + 2 to 16), read the haloed batch where it lies, with no copy, no zero
-fill and no add: one launch sums every row op on chip (only an input whose
-last axis is not of unit stride, such as a transposed view, is copied once
+Copies on ``cuda_sptc``: a plan :func:`grid_kernel` names a one-launch
+kernel for (a 2-D ``rows`` plan, a box or a star without its fast path,
+whose L and row ops the rows kernel holds: even L <= 16; on the card a 2-D
+``star-axis`` plan whose L the star kernel holds: even L from 2r + 2 to
+16) reads the haloed batch where it lies, with no copy, no zero fill and
+no add: one launch sums every row op on chip (only an input whose last
+axis is not of unit stride, such as a transposed view, is copied once
 first).  The per-RowOp loop runs everything else, a 3-D grid, a 2-D plan
 with a larger L and a 2-D star on the CPU among them: each 1-D application along the last axis copies its
 transposed slice to a unit column stride, an application along a leading
@@ -58,7 +58,8 @@ re-pad in ``iterate``.  Inside ``engine.apply`` the per-RowOp loop's glue
 has its own: ``engine.layout_copy`` around each copy made to give a
 kernel a unit column stride (opened only when a copy is made, so a
 contiguous grid opens none), and ``engine.accumulate`` around the zero
-fill of the accumulator and each ``acc + y`` (1 + R a call of R row ops;
+fill of the accumulator and each ``acc + y`` (1 + R a call of R row ops,
+as the variable-coefficient emission and ``apply_sptc_v1`` open them too;
 the ``single`` emission opens none).
 
 Device rule: an engine runs on the card (``device=None`` means ``cuda``)
@@ -90,10 +91,10 @@ from repro_torch.kernels.sptc_spmm.ops import (FusedOperand, RowsOperand,
                                                star2d_holds, star_operand)
 from repro_torch.kernels.stencil_gemm.ops import windows_gemm
 
-__all__ = ["BACKENDS", "StencilEngine", "apply_stencil", "apply_1d",
-           "apply_sptc_v1", "kernel_launches", "resolve_device",
-           "rows2d_operand", "star2d_operand", "takes_rows2d",
-           "takes_star2d", "tile_windows"]
+__all__ = ["BACKENDS", "GRID_WRAPPERS", "StencilEngine", "apply_stencil",
+           "apply_1d", "apply_sptc_v1", "emit_grid", "emit_row_ops",
+           "grid_kernel", "grid_operand", "kernel_launches",
+           "resolve_device", "row_op_fn", "tile_windows"]
 
 Tensor = torch.Tensor
 ApplyFn = Callable[[Tensor], Tensor]
@@ -194,9 +195,8 @@ def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int) -> Tensor:
     outside it; the kernel takes any row stride, so only a transposed view
     (unit row stride) is copied first: the per-RowOp loop's applications
     along the last axis of a 2-D or 3-D grid, and along a leading axis of a
-    batch of several grids.  A 2-D plan the rows kernel holds, or on the
-    card the star kernel, never comes here (:func:`_emit_rows2d`,
-    :func:`_emit_star2d`)."""
+    batch of several grids.  A plan :func:`grid_kernel` names a kernel
+    for never comes here (:func:`emit_grid`)."""
     if x2d.shape[1] > 1 and x2d.stride(1) != 1:
         with region("engine.layout_copy"):
             x2d = x2d.contiguous()
@@ -246,8 +246,8 @@ def _op_var_sptc(V: Tensor, rows: Tensor, x2d: Tensor, n_out: int,
 # The stage interpreter: LoweredPlan -> function on tensors.
 # ---------------------------------------------------------------------------
 
-def _operand_fn(plan: LoweredPlan, i: int, device: torch.device,
-                dtype: torch.dtype) -> OpFn:
+def row_op_fn(plan: LoweredPlan, i: int, device: torch.device,
+              dtype: torch.dtype) -> OpFn:
     """Device tables of constant-coefficient operand ``i``, bound to its
     1-D application primitive."""
     backend, L = plan.emit.backend, plan.L
@@ -314,22 +314,32 @@ def _op_slice(mode: str, op: RowOp, out_shape: Tuple[int, ...], r: int,
     return batch + sl, lead + d - 1
 
 
-def _accumulate(acc: Tensor, y: Tensor) -> Tensor:
-    """The per-RowOp loop's ``acc + y`` in its span.  ``y`` is freed as the
-    call returns, as it would be inline."""
+def _sum_row_ops(x: Tensor, shape: Tuple[int, ...],
+                 ops: Sequence[Tuple[OpFn, Tuple[slice, ...], int]]
+                 ) -> Tensor:
+    """The row ops ``(f, sl, axis)`` of ``x``, each ``f`` applied along
+    ``axis`` of ``x[sl]``, added in order into a zero-filled accumulator of
+    ``shape``: the fill and each ``acc + y`` in an ``engine.accumulate``
+    span (1 + R a call of R row ops)."""
     with region("engine.accumulate"):
-        return acc + y
+        acc = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for f, sl, axis in ops:
+        y = _apply_op(f, x[sl], shape[axis], axis)
+        with region("engine.accumulate"):
+            acc = acc + y
+        del y     # freed before the next op runs, as it would be inline
+    return acc
 
 
-def _emit_const(plan: LoweredPlan, device: torch.device,
-                dtype: torch.dtype,
-                operand_fn: Callable[..., OpFn] = _operand_fn) -> ApplyFn:
+def emit_row_ops(plan: LoweredPlan, device: torch.device,
+                 dtype: torch.dtype,
+                 operand_fn: Callable[..., OpFn] = row_op_fn) -> ApplyFn:
     """Constant-coefficient single/star-axis/rows emission on ``(B,
     *spatial)`` — shape-generic; one 1-D application per RowOp for the
-    whole batch (the per-RowOp loop; a plan :func:`takes_rows2d` or
-    :func:`takes_star2d` takes never comes here from ``emit``).
-    ``operand_fn`` binds each operand's 1-D application (the verifier
-    passes a faulty one to build its controls)."""
+    whole batch (the per-RowOp loop; a plan :func:`grid_kernel` names a
+    kernel for never comes here from ``emit``).  ``operand_fn`` binds each
+    operand's 1-D application (the verifier passes a faulty one to build
+    its controls)."""
     r, d = plan.spec.radius, plan.spec.ndim
     dec = plan.decompose
     mode = dec.mode
@@ -344,41 +354,42 @@ def _emit_const(plan: LoweredPlan, device: torch.device,
 
     def fn(xs: Tensor) -> Tensor:
         out_shape = tuple(s - 2 * r for s in xs.shape[1:])
-        with region("engine.accumulate"):
-            acc = torch.zeros((xs.shape[0],) + out_shape, dtype=xs.dtype,
-                              device=xs.device)
-        for op, f in zip(dec.ops, op_fns):
-            sl, axis = _op_slice(mode, op, out_shape, r, d, lead=1)
-            acc = _accumulate(acc, _apply_op(f, xs[sl], out_shape[axis - 1],
-                                             axis))
-        return acc
+        return _sum_row_ops(xs, (xs.shape[0],) + out_shape, [
+            (f, *_op_slice(mode, op, out_shape, r, d, lead=1))
+            for op, f in zip(dec.ops, op_fns)])
     return fn
 
 
-def takes_rows2d(plan: LoweredPlan) -> bool:
-    """Whether the plan's row ops run as ONE ``sptc_spmm_rows2d`` launch: a
-    2-D ``rows`` plan on ``cuda_sptc`` whose L and row ops the rows kernel
-    holds.  Every other plan keeps its emission."""
-    return (plan.emit.backend == "cuda_sptc"
-            and plan.decompose.mode == "rows" and plan.spec.ndim == 2
-            and plan.emit.coefficient_mode == "const"
-            and rows2d_holds(plan.L, [op.lead[0] for op in plan.decompose.ops],
-                             2 * plan.spec.radius))
+#: the one-launch wrappers of ``cuda_sptc`` by name (each wrapper's
+#: ``__name__`` and region), as :func:`grid_kernel` names them
+GRID_WRAPPERS: Dict[str, Callable[..., Tensor]] = {
+    f.__name__: f for f in (sptc_spmm_rows2d, sptc_spmm_star2d)}
 
 
-def takes_star2d(plan: LoweredPlan, device: Device = None) -> bool:
-    """Whether the plan's two axis ops run as ONE ``sptc_spmm_star2d``
-    launch on ``device`` (``None``: the card): a 2-D ``star-axis`` plan on
-    ``cuda_sptc`` with constant coefficients whose L the star kernel holds,
-    on a CUDA device.  On the CPU such a plan keeps the per-RowOp loop and
-    its glue spans, which ``spider_bench``'s star check profiles there; the
-    star kernel's plain version is held against the loop by calling
-    :func:`_emit_star2d` itself.  Every other plan keeps its emission."""
-    return ((device is None or torch.device(device).type == "cuda")
-            and plan.emit.backend == "cuda_sptc"
-            and plan.decompose.mode == "star-axis" and plan.spec.ndim == 2
-            and plan.emit.coefficient_mode == "const"
-            and star2d_holds(plan.L, plan.spec.radius))
+def grid_kernel(plan: LoweredPlan, device: Device = None) -> Optional[str]:
+    """The one-launch wrapper that runs every row op of ``plan`` on
+    ``device`` (``None``: the card), or ``None`` for a plan that keeps its
+    emission.  The only place this choice is made:
+
+    * ``sptc_spmm_rows2d`` for a 2-D ``rows`` plan on ``cuda_sptc`` with
+      constant coefficients whose L and row ops the rows kernel holds;
+    * ``sptc_spmm_star2d`` for a 2-D ``star-axis`` one whose L the star
+      kernel holds, on a CUDA device.  On the CPU such a plan keeps the
+      per-RowOp loop and its glue spans, which ``spider_bench``'s star
+      check profiles there; the star kernel's plain version is held
+      against the loop by calling :func:`emit_grid` itself.
+    """
+    if (plan.emit.backend != "cuda_sptc" or plan.spec.ndim != 2
+            or plan.emit.coefficient_mode != "const"):
+        return None
+    mode, r = plan.decompose.mode, plan.spec.radius
+    if mode == "rows" and rows2d_holds(
+            plan.L, [op.lead[0] for op in plan.decompose.ops], 2 * r):
+        return "sptc_spmm_rows2d"
+    if (mode == "star-axis" and star2d_holds(plan.L, r)
+            and (device is None or torch.device(device).type == "cuda")):
+        return "sptc_spmm_star2d"
+    return None
 
 
 #: the wrapper each matrix backend launches once per RowOp
@@ -390,15 +401,13 @@ def kernel_launches(plan: LoweredPlan,
     """The kernel wrappers one call of a one-step, constant-coefficient
     1-D or 2-D engine on ``plan`` launches on ``device`` (``None``: the
     card), by name (each wrapper's ``__name__`` and region), whatever its
-    batch: ``sptc_spmm_rows2d`` once for a plan :func:`takes_rows2d`
-    takes, ``sptc_spmm_star2d`` once for one :func:`takes_star2d` takes
-    there, ``stencil2d`` once on ``cuda_direct``, a matrix kernel once per
-    RowOp; none on a plain backend."""
+    batch: the wrapper :func:`grid_kernel` names once, ``stencil2d`` once
+    on ``cuda_direct``, a matrix kernel once per RowOp; none on a plain
+    backend."""
     backend = plan.emit.backend
-    if takes_rows2d(plan):
-        return {"sptc_spmm_rows2d": 1}
-    if takes_star2d(plan, device):
-        return {"sptc_spmm_star2d": 1}
+    one = grid_kernel(plan, device)
+    if one is not None:
+        return {one: 1}
     if backend == "cuda_direct":
         return {"stencil2d": 1}
     if backend in _ROW_OP_KERNELS:
@@ -406,56 +415,41 @@ def kernel_launches(plan: LoweredPlan,
     return {}
 
 
-def rows2d_operand(plan: LoweredPlan, device: torch.device,
-                   dtype: torch.dtype) -> RowsOperand:
-    """The rows kernel's tables of a plan :func:`takes_rows2d` takes: its
-    row ops' fused tables, stacked, with each op's row offset."""
-    ops = plan.decompose.ops
-    return rows_operand([_fused_operand(plan, op.operand, device, dtype)
-                         for op in ops], [op.lead[0] for op in ops],
-                        2 * plan.spec.radius)
+def grid_operand(plan: LoweredPlan, device: torch.device,
+                 dtype: torch.dtype) -> Union[RowsOperand, StarOperand]:
+    """The tables, on ``device``, of the kernel :func:`grid_kernel` names
+    for ``plan`` on the card: a :class:`RowsOperand` of a ``rows`` plan's
+    row ops, each with its row offset, or a :class:`StarOperand` of a
+    ``star-axis`` plan's two axis ops, the leading axis's first."""
+    name, ops, r = grid_kernel(plan), plan.decompose.ops, plan.spec.radius
+    if name == "sptc_spmm_rows2d":
+        return rows_operand([_fused_operand(plan, op.operand, device, dtype)
+                             for op in ops], [op.lead[0] for op in ops],
+                            2 * r)
+    if name == "sptc_spmm_star2d":
+        return star_operand([_fused_operand(plan, op.operand, device, dtype)
+                             for op in sorted(ops, key=lambda op: op.axis)],
+                            r)
+    raise ValueError(f"no one-launch kernel takes this {plan.spec.ndim}-D "
+                     f"{plan.decompose.mode} plan on {plan.emit.backend}")
 
 
-def _emit_rows2d(plan: LoweredPlan, device: torch.device,
-                 dtype: torch.dtype) -> ApplyFn:
-    """Every row op of a 2-D ``rows`` plan in one launch on ``(B, H + 2r,
-    W + 2r)``: the batch is read where it lies and the ``(B, H, W)``
-    interior written once, the R row ops summed on chip
-    (``kernels/csrc/sptc_rows2d.cu``)."""
-    rop = rows2d_operand(plan, device, dtype)
-
-    def fn(xs: Tensor) -> Tensor:
-        # the kernel takes any batch and row stride, not a column stride
-        if xs.shape[2] > 1 and xs.stride(2) != 1:
-            with region("engine.layout_copy"):
-                xs = xs.contiguous()
-        return sptc_spmm_rows2d(rop, xs)
-    return fn
-
-
-def star2d_operand(plan: LoweredPlan, device: torch.device,
-                   dtype: torch.dtype) -> StarOperand:
-    """The star kernel's tables of a plan :func:`takes_star2d` takes: its
-    two axis ops' fused tables, the leading axis's first."""
-    ops = sorted(plan.decompose.ops, key=lambda op: op.axis)
-    return star_operand([_fused_operand(plan, op.operand, device, dtype)
-                         for op in ops], plan.spec.radius)
-
-
-def _emit_star2d(plan: LoweredPlan, device: torch.device,
-                 dtype: torch.dtype) -> ApplyFn:
-    """Both axis ops of a 2-D ``star-axis`` plan in one launch on ``(B,
-    H + 2r, W + 2r)``: the batch is read where it lies and the ``(B, H,
-    W)`` interior written once, the two ops summed on chip
-    (``kernels/csrc/sptc_star2d.cu``)."""
-    sop = star2d_operand(plan, device, dtype)
+def emit_grid(plan: LoweredPlan, device: torch.device,
+              dtype: torch.dtype) -> ApplyFn:
+    """Every row op of a plan :func:`grid_kernel` names a kernel for (on
+    the card) in one launch of that wrapper on ``(B, H + 2r, W + 2r)``: the
+    batch is read where it lies and the ``(B, H, W)`` interior written
+    once, the row ops summed on chip (``kernels/csrc/sptc_rows2d.cu``,
+    ``sptc_star2d.cu``)."""
+    gop = grid_operand(plan, device, dtype)
+    wrapper = GRID_WRAPPERS[grid_kernel(plan)]  # type: ignore[index]
 
     def fn(xs: Tensor) -> Tensor:
         # the kernel takes any batch and row stride, not a column stride
         if xs.shape[2] > 1 and xs.stride(2) != 1:
             with region("engine.layout_copy"):
                 xs = xs.contiguous()
-        return sptc_spmm_star2d(sop, xs)
+        return wrapper(gop, xs)
     return fn
 
 
@@ -525,7 +519,8 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
 
     The coefficient field pins the output shape, so every table (including
     the per-slot value tensors) is built once here; the shared 2:4 pattern
-    means ONE slot/tap schedule serves every operand.
+    means ONE slot/tap schedule serves every operand.  The results are
+    summed as the per-RowOp loop sums them, in the same spans.
     """
     r, d = plan.spec.radius, plan.spec.ndim
     dec, gather = plan.decompose, plan.gather
@@ -535,7 +530,7 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
     in_shape = tuple(s + 2 * r for s in out_shape)
     backend = plan.emit.backend
     tensor = functools.partial(_tensor, dtype=dtype, device=device)
-    per_op: List[Tuple[Tuple[slice, ...], int, OpFn]] = []
+    per_op: List[Tuple[OpFn, Tuple[slice, ...], int]] = []
     for op in dec.ops:
         sl, axis = _op_slice(mode, op, out_shape, r, d)
         w2d = _var_slab_2d(dec.coefficients[op.operand], axis)
@@ -560,7 +555,7 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
         else:
             raise ValueError(
                 f"variable coefficients unsupported on {backend}")
-        per_op.append((sl, axis, f))
+        per_op.append((f, sl, axis))
 
     def fn(x: Tensor) -> Tensor:
         if tuple(x.shape) != in_shape:
@@ -568,10 +563,7 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
                 f"variable-coefficient engine is fixed-shape: expected "
                 f"input {in_shape} (= out {out_shape} + 2r halo), got "
                 f"{tuple(x.shape)}")
-        acc = torch.zeros(out_shape, dtype=x.dtype, device=x.device)
-        for sl, axis, f in per_op:
-            acc = acc + _apply_op(f, x[sl], out_shape[axis], axis)
-        return acc
+        return _sum_row_ops(x, out_shape, per_op)
     return fn
 
 
@@ -588,11 +580,9 @@ def _emit_step(plan: LoweredPlan, device: torch.device,
         return _per_job(_emit_var(plan, device, dtype))
     if plan.decompose.mode == "fused-rows":
         return _per_job(_emit_fused_2d(plan, device, dtype))
-    if takes_rows2d(plan):
-        return _emit_rows2d(plan, device, dtype)
-    if takes_star2d(plan, device):
-        return _emit_star2d(plan, device, dtype)
-    return _emit_const(plan, device, dtype)
+    if grid_kernel(plan, device) is not None:
+        return emit_grid(plan, device, dtype)
+    return emit_row_ops(plan, device, dtype)
 
 
 def emit(plan: LoweredPlan, device: Device = None,
@@ -728,8 +718,8 @@ def apply_sptc_v1(spec: StencilSpec, x: Tensor,
     The sptc plan's row ops run on ``x``'s device and dtype, each as
     strided-swapped windows of its input slice times its 2:4-compressed
     operand (:func:`~repro_torch.kernels.sptc_spmm.ops.sptc_spmm_windows`),
-    summed.  Builds its tables on every call; constant coefficients, one
-    step.
+    summed as the per-RowOp loop sums them, in the same spans.  Builds its
+    tables on every call; constant coefficients, one step.
     """
     plan = lower_spec(spec, backend="sptc", L=L)
     r, d, L = spec.radius, spec.ndim, plan.L
@@ -741,11 +731,9 @@ def apply_sptc_v1(spec: StencilSpec, x: Tensor,
                              torch.as_tensor(o.meta, device=dev), order, L=L)
            for o in sp.operands]
     out_shape = tuple(s - 2 * r for s in x.shape)
-    acc = torch.zeros(out_shape, dtype=x.dtype, device=dev)
-    for op in plan.decompose.ops:
-        sl, axis = _op_slice(plan.decompose.mode, op, out_shape, r, d)
-        acc = acc + _apply_op(fns[op.operand], x[sl], out_shape[axis], axis)
-    return acc
+    return _sum_row_ops(x, out_shape, [
+        (fns[op.operand], *_op_slice(plan.decompose.mode, op, out_shape, r, d))
+        for op in plan.decompose.ops])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
 // Shared helpers for the SPIDER Hopper kernels: storage-type loads and
-// stores with float32 arithmetic, and the launch shape used by every kernel.
+// stores with float32 arithmetic, the launch shape of the simple kernels,
+// and the one copy of the tensor-core kernels' instructions, copies and
+// persistent launch.
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -32,20 +35,28 @@ inline unsigned int grid_for(int64_t threads) {
   return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
 
-// Helpers of the sparse tensor-core kernels that stage their input with
-// cp.async (sptc_rows2d.cu, sptc_star2d.cu).
-namespace sptc {
+// -- helpers of the tensor-core kernels (sptc_fused.cu, sptc_spmm.cu,
+// sptc_rows2d.cu, sptc_star2d.cu, windows_gemm.cu) -------------------------
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
 
-// window position p holds source column swap(p): odd p < L <-> p + L
+// window position p holds source row (or column) swap(p): odd p < L <-> p + L
 __device__ __forceinline__ int strided_swap(int p, int L) {
   return (p & 1) ? (p < L ? p + L : p - L) : p;
 }
 
-// float32 -> TF32 bits, to nearest with ties away from zero (as
-// cvt.rna.tf32.f32 for finite values), in two integer instructions
-__device__ __forceinline__ uint32_t tf32_big(float v) {
+// float32 -> TF32 bits by cvt.rna.tf32.f32: to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32_cvt(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// float32 -> TF32 bits in two integer instructions: as tf32_cvt for finite
+// values, not for infinities and NaNs
+__device__ __forceinline__ uint32_t tf32_int(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
 }
 
@@ -83,6 +94,53 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+
+// The widest copy (16, 8 or 4 bytes) from whose alignment every row and job
+// of an input of `size`-byte elements lies the same number of elements: row
+// stride ld, B jobs batch stride sb (in elements); `size` if none.
+inline int widest_copy(int64_t size, int64_t ld, int64_t B, int64_t sb) {
+  for (int v : {16, 8, 4})
+    if (v > size && ld * size % v == 0 && (B == 1 || sb * size % v == 0)) return v;
+  return static_cast<int>(size);
+}
+
+// How launch_persistent sets a kernel's shared-memory attributes
+enum class SmemOptIn {
+  kAlways,          // the dynamic limit raised to the block's bytes
+  kPastDefault,     // raised only past the default 48 KB
+  kAlwaysCarveout,  // raised, and the largest shared-memory carveout preferred
+};
+
+// Launch `kernel` on persistent blocks: as many of `threads` threads and
+// `smem` bytes as the SMs hold at once, at most `work_items`, each block
+// walking the work items.  Returns the CUDA status.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int threads, size_t smem, int64_t work_items,
+                      SmemOptIn opt_in, cudaStream_t stream, const Args&... args) {
+  cudaError_t err = cudaSuccess;
+  if (opt_in != SmemOptIn::kPastDefault || smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess && opt_in == SmemOptIn::kAlwaysCarveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t blocks = min64(work_items, static_cast<int64_t>(sms) * per_sm);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Of the kernels that stage their input with cp.async (sptc_rows2d.cu,
+// sptc_star2d.cu); sptc_fused.cu has its own ld_bf16x2 for both storage
+// types.
+namespace sptc {
 
 // two staged bfloat16 elements as one register (low half first)
 __device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* b, int off0,

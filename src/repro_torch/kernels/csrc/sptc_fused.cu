@@ -65,8 +65,6 @@ struct FusedParams {
   int L, nks, mb_count, tiles_per_run, buf_elems;
 };
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
 // bytes of a 16-byte vector of V elements inside [0, n) from element i
 template <typename T>
 __device__ __forceinline__ int vec_bytes(int64_t i, int64_t n) {
@@ -75,49 +73,6 @@ __device__ __forceinline__ int vec_bytes(int64_t i, int64_t n) {
   return (left <= 0 ? 0 : left >= V ? V : static_cast<int>(left)) * sizeof(T);
 }
 
-// window position p holds source row swap(p): odd p < L <-> p + L
-__device__ __forceinline__ int strided_swap(int p, int L) {
-  return (p & 1) ? (p < L ? p + L : p - L) : p;
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void mma_sp_tf32(float (&d)[4], uint32_t a0,
-                                            uint32_t a1, uint32_t b0,
-                                            uint32_t b1, uint32_t e) {
-  asm("mma.sp::ordered_metadata.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6,%7}, {%0,%1,%2,%3}, %8, 0x0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "r"(b1), "r"(e));
-}
-
-__device__ __forceinline__ void mma_sp_bf16(float (&d)[4], uint32_t a0,
-                                            uint32_t a1, uint32_t b0,
-                                            uint32_t b1, uint32_t e) {
-  asm("mma.sp::ordered_metadata.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6,%7}, {%0,%1,%2,%3}, %8, 0x0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "r"(b1), "r"(e));
-}
-
-// cp.async of `bytes` (<= size) from src, the rest of the size zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 // wait for the oldest of the kStages groups in flight
 __device__ __forceinline__ void cp_async_wait_oldest() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1));
@@ -130,7 +85,7 @@ template <typename T>
 __device__ __forceinline__ void stage_elem(T* dst, const T* src, bool in,
                                            const T* base) {
   if constexpr (sizeof(T) == 4) {
-    cp_async4(dst, in ? src : base, in ? 4 : 0);
+    cp_async<4>(dst, in ? src : base, in ? 4 : 0);
   } else {
     *dst = in ? *src : from_f32<T>(0.f);
   }
@@ -154,7 +109,7 @@ __device__ void stage_run(T* s, const FusedParams& p, int64_t run) {
     for (int i = threadIdx.x; i < nv; i += blockDim.x) {
       const int64_t gr = row0 + static_cast<int64_t>(i) * V;
       const int bytes = vec_bytes<T>(gr, p.rows);
-      cp_async16(s + i * V, bytes > 0 ? x + gr : x, bytes);
+      cp_async<16>(s + i * V, bytes > 0 ? x + gr : x, bytes);
     }
     for (int i = nv * V + threadIdx.x; i < R; i += blockDim.x) {
       const int64_t gr = row0 + i;
@@ -170,8 +125,8 @@ __device__ void stage_run(T* s, const FusedParams& p, int64_t run) {
         const int r = i / CV, cv = i - r * CV;
         const int64_t gr = row0 + r, gc = col0 + cv * V;
         const int bytes = gr < p.rows ? vec_bytes<T>(gc, p.C) : 0;
-        cp_async16(s + r * stride + cv * V, bytes > 0 ? x + gr * p.ld + gc : x,
-                   bytes);
+        cp_async<16>(s + r * stride + cv * V,
+                     bytes > 0 ? x + gr * p.ld + gc : x, bytes);
       }
     } else {                     // rows not 16-byte aligned: element copies
       for (int i = threadIdx.x; i < R * kColBlock; i += blockDim.x) {
@@ -246,8 +201,8 @@ sptc_mma_kernel(const FusedParams p) {
       for (int r = 0; r < 2; ++r) {
         const uint32_t w = p.a[(f * 2 + r) * 32 + lane];
         if constexpr (kRoute == kRouteTF32) {
-          a_hi[ks][r] = to_tf32(__uint_as_float(w));
-          a_lo[ks][r] = to_tf32(__uint_as_float(w) - __uint_as_float(a_hi[ks][r]));
+          a_hi[ks][r] = tf32_cvt(__uint_as_float(w));
+          a_lo[ks][r] = tf32_cvt(__uint_as_float(w) - __uint_as_float(a_hi[ks][r]));
         } else {
           a_hi[ks][r] = w;
         }
@@ -302,9 +257,9 @@ sptc_mma_kernel(const FusedParams p) {
                               : s + q * L * stride + 8 * j + g;
           if constexpr (kRoute == kRouteTF32) {
             const float x0 = ld_f32(b, off[ks][0]), x1 = ld_f32(b, off[ks][1]);
-            const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
-            const uint32_t l0 = to_tf32(x0 - __uint_as_float(h0));
-            const uint32_t l1 = to_tf32(x1 - __uint_as_float(h1));
+            const uint32_t h0 = tf32_cvt(x0), h1 = tf32_cvt(x1);
+            const uint32_t l0 = tf32_cvt(x0 - __uint_as_float(h0));
+            const uint32_t l1 = tf32_cvt(x1 - __uint_as_float(h1));
             if (!stacked) mma_sp_tf32(d[j], a_lo[ks][0], a_lo[ks][1], h0, h1, meta[ks]);
             mma_sp_tf32(d[j], a_hi[ks][0], a_hi[ks][1], l0, l1, meta[ks]);
             mma_sp_tf32(d[j], a_hi[ks][0], a_hi[ks][1], h0, h1, meta[ks]);
@@ -384,22 +339,9 @@ int launch_mma(FusedParams p, cudaStream_t stream) {
     smem = kStages * static_cast<size_t>(p.buf_elems) * sizeof(T);
   }
   p.runs = (p.tiles + p.tiles_per_run - 1) / p.tiles_per_run * p.col_blocks;
-  auto kernel = sptc_mma_kernel<T, kRoute, kCols1, kKS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // persistent blocks, each walking runs through kStages buffers
-  const int64_t blocks = std::min<int64_t>(p.runs, static_cast<int64_t>(sms) * per_sm);
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(sptc_mma_kernel<T, kRoute, kCols1, kKS>, kWarps * 32,
+                           smem, p.runs, SmemOptIn::kAlways, stream, p);
 }
 
 template <typename T, int kRoute, bool kCols1>

@@ -44,9 +44,6 @@
 // The sums are float32, rounded once to the storage type and stored from
 // the fragments: each store instruction writes a tile's columns in four
 // rows.
-#include <algorithm>
-#include <initializer_list>
-
 #include "common.cuh"
 
 namespace spider {
@@ -229,9 +226,9 @@ sptc_rows2d_kernel(const Params p) {
     uint4 v;
     if constexpr (kRoute == kRouteTF32) {
       const float f0 = __uint_as_float(w0), f1 = __uint_as_float(w1);
-      const uint32_t h0 = tf32_big(f0), h1 = tf32_big(f1);
-      const uint32_t l0 = tf32_big(f0 - __uint_as_float(h0));
-      const uint32_t l1 = tf32_big(f1 - __uint_as_float(h1));
+      const uint32_t h0 = tf32_int(f0), h1 = tf32_int(f1);
+      const uint32_t l0 = tf32_int(f0 - __uint_as_float(h0));
+      const uint32_t l1 = tf32_int(f1 - __uint_as_float(h1));
       if constexpr (stacked) {
         v = make_uint4(h0, l0, 0u, 0u);
         m = (m & 0xFFFFu) | (m << 16);
@@ -318,9 +315,9 @@ sptc_rows2d_kernel(const Params p) {
             const T* bj = bu + 8 * j * kS;
             if constexpr (kRoute == kRouteTF32) {
               const float x0 = to_f32(bj[off[ks][0]]), x1 = to_f32(bj[off[ks][1]]);
-              const uint32_t h0 = tf32_big(x0), h1 = tf32_big(x1);
-              const uint32_t l0 = tf32_big(x0 - __uint_as_float(h0));
-              const uint32_t l1 = tf32_big(x1 - __uint_as_float(h1));
+              const uint32_t h0 = tf32_int(x0), h1 = tf32_int(x1);
+              const uint32_t l0 = tf32_int(x0 - __uint_as_float(h0));
+              const uint32_t l1 = tf32_int(x1 - __uint_as_float(h1));
               if constexpr (!stacked) mma_sp_tf32(e[j], a.z, a.w, h0, h1, meta);
               mma_sp_tf32(e[j], a.x, a.y, l0, l1, meta);
               mma_sp_tf32(e[j], a.x, a.y, h0, h1, meta);
@@ -369,15 +366,7 @@ int launch(Params p, cudaStream_t stream) {
   constexpr int kS = staged_stride<T>(kKS, kRoute);
   const int64_t size = sizeof(T);
   p.tiles_per_run = tiles_per_run(p.L);
-  // the widest copy (16, 8 or 4 bytes) from whose alignment every row and
-  // job of the input lies the same number of elements
-  p.vec = static_cast<int>(size);
-  for (int v : {16, 8, 4}) {
-    if (v > p.vec && p.ld * size % v == 0 && (p.B == 1 || p.sb * size % v == 0)) {
-      p.vec = v;
-      break;
-    }
-  }
+  p.vec = widest_copy(size, p.ld, p.B, p.sb);
   const int V = p.vec / static_cast<int>(size);
   p.shift = static_cast<int>(reinterpret_cast<uintptr_t>(p.x) / size % V);
   const int cols = (p.tiles_per_run + 1) * p.L;
@@ -390,25 +379,9 @@ int launch(Params p, cudaStream_t stream) {
   const size_t smem =
       kStages * static_cast<size_t>(kRunRows + p.halo) * kS * sizeof(T) +
       static_cast<size_t>(p.R) * kKS * 32 * (sizeof(uint4) + 4);
-  auto kernel = sptc_rows2d_kernel<T, kRoute, kKS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // persistent blocks, each walking runs
-  const int64_t blocks = std::min<int64_t>(p.runs, static_cast<int64_t>(sms) * per_sm);
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(sptc_rows2d_kernel<T, kRoute, kKS>, kWarps * 32, smem,
+                           p.runs, SmemOptIn::kAlwaysCarveout, stream, p);
 }
 
 }  // namespace rows2d

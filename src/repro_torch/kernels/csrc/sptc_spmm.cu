@@ -92,30 +92,6 @@ struct Params {
   bool vec_ld, vec_st;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void mma_sp_tf32(float (&d)[4], uint32_t a0,
-                                            uint32_t a1, uint32_t b0,
-                                            uint32_t b1, uint32_t e) {
-  asm("mma.sp::ordered_metadata.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6,%7}, {%0,%1,%2,%3}, %8, 0x0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "r"(b1), "r"(e));
-}
-
-__device__ __forceinline__ void mma_sp_bf16(float (&d)[4], uint32_t a0,
-                                            uint32_t a1, uint32_t b0,
-                                            uint32_t b1, uint32_t e) {
-  asm("mma.sp::ordered_metadata.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6,%7}, {%0,%1,%2,%3}, %8, 0x0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "r"(b1), "r"(e));
-}
-
 // raw bits of a storage element
 __device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
@@ -384,8 +360,8 @@ __device__ __forceinline__ Frag load_frag(const Tables& tb, const Params& p, int
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float v = __uint_as_float(f.hi[q][r]);
-        f.hi[q][r] = to_tf32(v);
-        f.lo[q][r] = to_tf32(v - __uint_as_float(f.hi[q][r]));
+        f.hi[q][r] = tf32_cvt(v);
+        f.lo[q][r] = tf32_cvt(v - __uint_as_float(f.hi[q][r]));
       }
     }
   }
@@ -398,9 +374,9 @@ __device__ __forceinline__ void mma_kstep(float (&d)[4], const Frag& f, bool two
                                           uint32_t b0, uint32_t b1) {
   if constexpr (sizeof(T) == 4) {
     const float x0 = __uint_as_float(b0), x1 = __uint_as_float(b1);
-    const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
-    const uint32_t l0 = to_tf32(x0 - __uint_as_float(h0));
-    const uint32_t l1 = to_tf32(x1 - __uint_as_float(h1));
+    const uint32_t h0 = tf32_cvt(x0), h1 = tf32_cvt(x1);
+    const uint32_t l0 = tf32_cvt(x0 - __uint_as_float(h0));
+    const uint32_t l1 = tf32_cvt(x1 - __uint_as_float(h1));
     // this k-step's sum in a fresh accumulator, added in float32: the
     // tensor cores' own accumulation truncates
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -546,26 +522,10 @@ inline size_t table_bytes(const Params& p) {
 
 template <typename T, int kMode, int kKS>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kernel = sptc_spmm_kernel<T, kMode, kKS>;
-  const size_t smem = table_bytes(p);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024)                  // opt in past the default 48 KB
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // persistent blocks: the prologue runs once per block
-  int64_t blocks = (p.items + kWarps - 1) / kWarps;
-  if (blocks > static_cast<int64_t>(sms) * per_sm) blocks = static_cast<int64_t>(sms) * per_sm;
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(sptc_spmm_kernel<T, kMode, kKS>, kWarps * 32,
+                           table_bytes(p), (p.items + kWarps - 1) / kWarps,
+                           SmemOptIn::kPastDefault, stream, p);
 }
 
 template <typename T, int kMode>

@@ -57,9 +57,6 @@
 //     (two instructions a k-step, the halves of D summed at the end).  B is
 //     split as big = x rounded to TF32 and small = x - big rounded to TF32;
 //   * bfloat16: mma.sp.m16n8k16.bf16 on the 2:4 operand, rounded once.
-#include <algorithm>
-#include <initializer_list>
-
 #include "common.cuh"
 
 namespace spider {
@@ -235,9 +232,9 @@ __device__ __forceinline__ void k_step(float (&e)[kN][4], const uint4 a,
         x0 = ok[0] ? x0 : 0.f;
         x1 = ok[1] ? x1 : 0.f;
       }
-      const uint32_t h0 = tf32_big(x0), h1 = tf32_big(x1);
-      const uint32_t l0 = tf32_big(x0 - __uint_as_float(h0));
-      const uint32_t l1 = tf32_big(x1 - __uint_as_float(h1));
+      const uint32_t h0 = tf32_int(x0), h1 = tf32_int(x1);
+      const uint32_t l0 = tf32_int(x0 - __uint_as_float(h0));
+      const uint32_t l1 = tf32_int(x1 - __uint_as_float(h1));
       if constexpr (!kStacked) mma_sp_tf32(e[n], a.z, a.w, h0, h1, meta);
       mma_sp_tf32(e[n], a.x, a.y, l0, l1, meta);
       mma_sp_tf32(e[n], a.x, a.y, h0, h1, meta);
@@ -316,9 +313,9 @@ sptc_star2d_kernel(const Params p) {
     uint4 v;
     if constexpr (kRoute == kRouteTF32) {
       const float f0 = __uint_as_float(w0), f1 = __uint_as_float(w1);
-      const uint32_t h0 = tf32_big(f0), h1 = tf32_big(f1);
-      const uint32_t l0 = tf32_big(f0 - __uint_as_float(h0));
-      const uint32_t l1 = tf32_big(f1 - __uint_as_float(h1));
+      const uint32_t h0 = tf32_int(f0), h1 = tf32_int(f1);
+      const uint32_t l0 = tf32_int(f0 - __uint_as_float(h0));
+      const uint32_t l1 = tf32_int(f1 - __uint_as_float(h1));
       if constexpr (stacked) {
         v = make_uint4(h0, l0, 0u, 0u);
         m = (m & 0xFFFFu) | (m << 16);
@@ -455,15 +452,7 @@ sptc_star2d_kernel(const Params p) {
 template <typename T, int kRoute, int L>
 int launch(Params p, cudaStream_t stream) {
   const int64_t size = sizeof(T);
-  // the widest copy (16, 8 or 4 bytes) from whose alignment every row and
-  // job of the input lies the same number of elements
-  p.vec = static_cast<int>(size);
-  for (int v : {16, 8, 4}) {
-    if (v > p.vec && p.ld * size % v == 0 && (p.B == 1 || p.sb * size % v == 0)) {
-      p.vec = v;
-      break;
-    }
-  }
+  p.vec = widest_copy(size, p.ld, p.B, p.sb);
   const int V = p.vec / static_cast<int>(size);
   p.shift = static_cast<int>(reinterpret_cast<uintptr_t>(p.x) / size % V);
   p.row_vecs = (p.shift + run_cols(L) + L + V - 1) / V;
@@ -475,25 +464,9 @@ int launch(Params p, cudaStream_t stream) {
   p.col_blocks = static_cast<int>(col_blocks);
   p.runs = static_cast<int>(p.B * row_blocks * col_blocks);
   const size_t smem = smem_bytes<T, kRoute>(L);
-  auto kernel = sptc_star2d_kernel<T, kRoute, L>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kWarps * 32, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // persistent blocks, each walking runs
-  const int blocks = std::min(p.runs, sms * per_sm);
-  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(sptc_star2d_kernel<T, kRoute, L>, kWarps * 32, smem,
+                           p.runs, SmemOptIn::kAlwaysCarveout, stream, p);
 }
 
 template <typename T, int kRoute>

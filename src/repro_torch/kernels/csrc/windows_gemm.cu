@@ -71,14 +71,6 @@ struct Params {
   bool vec;                      // column mode: 4-column loads and stores aligned
 };
 
-__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -332,10 +324,10 @@ windows_gemm_kernel(const Params p) {
         const uint2 b = btab[(ks * p.nb + nb) * 32 + lane];
         uint32_t bh0 = b.x, bh1 = b.y, bl0 = 0u, bl1 = 0u;
         if constexpr (tf32) {
-          bh0 = to_tf32(__uint_as_float(b.x));
-          bh1 = to_tf32(__uint_as_float(b.y));
-          bl0 = to_tf32(__uint_as_float(b.x) - __uint_as_float(bh0));
-          bl1 = to_tf32(__uint_as_float(b.y) - __uint_as_float(bh1));
+          bh0 = tf32_cvt(__uint_as_float(b.x));
+          bh1 = tf32_cvt(__uint_as_float(b.y));
+          bl0 = tf32_cvt(__uint_as_float(b.x) - __uint_as_float(bh0));
+          bl1 = tf32_cvt(__uint_as_float(b.y) - __uint_as_float(bh1));
         }
 #pragma unroll
         for (int j = 0; j < kMB; ++j) {
@@ -344,8 +336,8 @@ windows_gemm_kernel(const Params p) {
             uint32_t ah[4], al[4];
 #pragma unroll
             for (int v = 0; v < 4; ++v) {
-              ah[v] = to_tf32(__uint_as_float(a[j][v]));
-              al[v] = to_tf32(__uint_as_float(a[j][v]) - __uint_as_float(ah[v]));
+              ah[v] = tf32_cvt(__uint_as_float(a[j][v]));
+              al[v] = tf32_cvt(__uint_as_float(a[j][v]) - __uint_as_float(ah[v]));
             }
             // this k-step's sum in a fresh accumulator, added in float32:
             // the tensor cores' own accumulation truncates

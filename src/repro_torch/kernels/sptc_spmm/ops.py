@@ -15,7 +15,8 @@ lies on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Sequence, Tuple, Union
+from typing import (TYPE_CHECKING, Callable, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -273,6 +274,34 @@ def _check_grids(op: FusedOperand, xs: torch.Tensor,
     return xs.shape[0], xs.shape[1] - halo, xs.shape[2] - halo
 
 
+def _one_launch(wrapper, gop: Union[RowsOperand, StarOperand],
+                xs: torch.Tensor, halo: int,
+                plain: Callable[[list], torch.Tensor],
+                launch: Callable[[torch.Tensor, fr.Fragments, bool], None]
+                ) -> torch.Tensor:
+    """The steps the one-launch 2-D wrappers share: check ``xs`` against
+    ``gop``'s tables and a ``halo``-wide halo; on the CPU ``plain`` on the
+    ops' (values, meta words, star_fast) in the wrapper's region; on the
+    card a contiguous (B, H, W) output, and ``launch(y, frags, tf32)`` with
+    the route's stacked tables in the region, counted on
+    ``wrapper.launches``."""
+    b, h, w = _check_grids(gop.ops[0], xs, halo)
+    name = wrapper.__name__
+    if xs.device.type == "cpu":
+        with region(name):
+            return plain([(o.values, o.meta_words, o.star_fast)
+                          for o in gop.ops])
+    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
+    if y.numel() == 0:
+        return y
+    tf32 = xs.dtype == torch.float32
+    with region(name):
+        launch(y, gop.tf32 if tf32 else gop.bf16,  # type: ignore[arg-type]
+               tf32)
+    wrapper.launches += 1
+    return y
+
+
 def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
     """Every row op at once: ``y[b, i, j] = sum_u op_u(xs[b, i + leads[u],
     :])[j]``.
@@ -283,23 +312,14 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
     summed in float32, in order, and rounded once: in float32 the sums of
     :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
     """
-    b, h, w = _check_grids(rop.ops[0], xs, rop.halo)
-    L = rop.L
-    if xs.device.type == "cpu":
-        with region("sptc_spmm_rows2d"):
-            return sptc_rows2d_ref(
-                [(o.values, o.meta_words, o.star_fast) for o in rop.ops],
-                rop.leads, xs, halo=rop.halo, L=L)
-    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
-    if y.numel() == 0:
-        return y
-    tf32 = xs.dtype == torch.float32
-    lead_bits = sum(u << (4 * i) for i, u in enumerate(rop.leads))
-    with region("sptc_spmm_rows2d"):
-        sptc_rows2d_launch(xs, y, rop.tf32 if tf32 else rop.bf16,
-                           halo=rop.halo, L=L, lead_bits=lead_bits, tf32=tf32)
-    sptc_spmm_rows2d.launches += 1
-    return y
+    return _one_launch(
+        sptc_spmm_rows2d, rop, xs, rop.halo,
+        lambda tables: sptc_rows2d_ref(tables, rop.leads, xs,
+                                       halo=rop.halo, L=rop.L),
+        lambda y, frags, tf32: sptc_rows2d_launch(
+            xs, y, frags, halo=rop.halo, L=rop.L,
+            lead_bits=sum(u << (4 * i) for i, u in enumerate(rop.leads)),
+            tf32=tf32))
 
 
 sptc_spmm_rows2d.launches = 0    # type: ignore[attr-defined]
@@ -369,21 +389,11 @@ def sptc_spmm_star2d(sop: StarOperand, xs: torch.Tensor) -> torch.Tensor:
     :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
     """
     r = sop.radius
-    b, h, w = _check_grids(sop.ops[0], xs, 2 * r)
-    if xs.device.type == "cpu":
-        with region("sptc_spmm_star2d"):
-            return sptc_star2d_ref(
-                [(o.values, o.meta_words, o.star_fast) for o in sop.ops], xs,
-                radius=r, L=sop.L)
-    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
-    if y.numel() == 0:
-        return y
-    tf32 = xs.dtype == torch.float32
-    with region("sptc_spmm_star2d"):
-        sptc_star2d_launch(xs, y, sop.tf32 if tf32 else sop.bf16, radius=r,
-                           L=sop.L, tf32=tf32)
-    sptc_spmm_star2d.launches += 1
-    return y
+    return _one_launch(
+        sptc_spmm_star2d, sop, xs, 2 * r,
+        lambda tables: sptc_star2d_ref(tables, xs, radius=r, L=sop.L),
+        lambda y, frags, tf32: sptc_star2d_launch(
+            xs, y, frags, radius=r, L=sop.L, tf32=tf32))
 
 
 sptc_spmm_star2d.launches = 0    # type: ignore[attr-defined]

@@ -107,11 +107,10 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.core.engine import (StencilEngine, _emit_const,
-                                     _emit_rows2d, _emit_star2d,
-                                     _operand_fn, apply_sptc_v1,
-                                     kernel_launches, takes_rows2d,
-                                     takes_star2d)
+from repro_torch.core.engine import (GRID_WRAPPERS, StencilEngine,
+                                     apply_sptc_v1, emit_grid, emit_row_ops,
+                                     grid_kernel, kernel_launches,
+                                     row_op_fn)
 from repro_torch.core.stencil import StencilSpec, make_stencil
 from repro_torch.core.transform import decompose_rows, lower_spec
 from repro_torch.device import Device, resolve_device
@@ -124,10 +123,6 @@ _PATH = "src/repro_torch/core/engine.py"
 #: engine backend -> the kernel subsystem its audit certifies
 BACKEND_KERNEL = {"gemm": "stencil_gemm", "sptc": "sptc_spmm"}
 FUSED_KERNEL = "sptc_spmm_fused"
-#: the one program of a 2-D "rows" plan on cuda_sptc
-ROWS_KERNEL = "sptc_spmm_rows2d"
-#: the one program of a 2-D "star-axis" plan on cuda_sptc
-STAR_KERNEL = "sptc_spmm_star2d"
 
 #: op classes counted outside the kernel regions (first match wins)
 OP_CLASSES: Dict[str, Tuple[str, ...]] = {
@@ -206,11 +201,10 @@ def _finding(cfg: VetConfig, rule: str, symbol: str, message: str,
 def fused_programs(spec: StencilSpec,
                    device: Device = None) -> Dict[str, int]:
     """The programs a cuda_sptc engine's call of ``spec`` runs on ``device``
-    (``None``: the card), by region (``engine.kernel_launches``): one
-    ``sptc_spmm_rows2d`` for the R applications of a 2-D ``rows`` plan the
-    rows kernel takes, one ``sptc_spmm_star2d`` for the two of a 2-D
-    ``star-axis`` plan the star kernel takes there, else one
-    ``sptc_spmm_fused`` per 1-D application."""
+    (``None``: the card), by region (``engine.kernel_launches``): once the
+    one-launch wrapper ``engine.grid_kernel`` names for the plan there
+    (``sptc_spmm_rows2d`` for a 2-D box, ``sptc_spmm_star2d`` for a 2-D
+    star on the card), else one ``sptc_spmm_fused`` per 1-D application."""
     return kernel_launches(lower_spec(spec, backend="cuda_sptc"), device)
 
 
@@ -577,14 +571,13 @@ def check_fused(cfg: VetConfig, symbol: str, counts: Dict[str, int],
     budget = cfg.lowering_budgets.get("cuda_sptc", {})
     napps = n_applications(spec, fused=False)
     want = fused_programs(spec, device)
-    got = {k: regions.get(k, 0)
-           for k in (FUSED_KERNEL, ROWS_KERNEL, STAR_KERNEL)}
+    got = {k: regions.get(k, 0) for k in (FUSED_KERNEL, *GRID_WRAPPERS)}
     if got != {k: want.get(k, 0) for k in got}:
         findings.append(_finding(
             cfg, "pallas-fused-program", symbol,
             f"expected fused program(s) {want} (one {FUSED_KERNEL} per 1-D "
-            f"application, one {ROWS_KERNEL} for a 2-D box's or one "
-            f"{STAR_KERNEL} for a 2-D star's), the call ran {got}"))
+            f"application, or one {' or '.join(GRID_WRAPPERS)} for every "
+            f"row op of a 2-D box or star), the call ran {got}"))
     elif "kernels" in counts and counts["kernels"] != sum(got.values()):
         findings.append(_finding(
             cfg, "pallas-fused-program", symbol,
@@ -676,19 +669,16 @@ def planted_gather(spec: StencilSpec, device: Device = None,
     """A cuda_sptc engine whose every program first gathers its input
     through a standalone index (the identity order, so the answer holds):
     the fault the fused rules exist to catch.  A program is each op's
-    ``sptc_spmm_fused``, or the one ``sptc_spmm_rows2d`` of a 2-D ``rows``
-    plan the rows kernel takes, or the one ``sptc_spmm_star2d`` of a 2-D
-    ``star-axis`` plan the star kernel takes on ``device``.  With
+    ``sptc_spmm_fused``, or the one launch of the wrapper
+    ``engine.grid_kernel`` names for the plan on ``device``.  With
     ``in_region`` the gather runs inside the program's region, as a wrapper
     that gathered before its launch would run it; only the card's audit,
     which walks into regions, can see it there."""
     device = resolve_device(device)
     plan = lower_spec(spec, backend="cuda_sptc")
-    one = ((_emit_rows2d, ROWS_KERNEL) if takes_rows2d(plan) else
-           (_emit_star2d, STAR_KERNEL) if takes_star2d(plan, device)
-           else None)
-    if one is not None:
-        one_fn, name = one[0](plan, device, torch.float32), one[1]
+    name = grid_kernel(plan, device)
+    if name is not None:
+        one_fn = emit_grid(plan, device, torch.float32)
 
         def gathered_one(x: torch.Tensor) -> torch.Tensor:
             rows = torch.arange(x.shape[0], device=x.device)
@@ -700,7 +690,7 @@ def planted_gather(spec: StencilSpec, device: Device = None,
 
     def gathered_operand(plan, i: int, device: torch.device,
                          dtype: torch.dtype):
-        op = _operand_fn(plan, i, device, dtype)
+        op = row_op_fn(plan, i, device, dtype)
 
         def gathered(x2d: torch.Tensor, n_out: int) -> torch.Tensor:
             rows = torch.arange(x2d.shape[0], device=x2d.device)
@@ -710,8 +700,8 @@ def planted_gather(spec: StencilSpec, device: Device = None,
                 return op(x2d[rows], n_out)
         return gathered
 
-    fn = _emit_const(plan, device, torch.float32,
-                     operand_fn=gathered_operand)
+    fn = emit_row_ops(plan, device, torch.float32,
+                      operand_fn=gathered_operand)
     return lambda x: fn(x[None])[0]
 
 

@@ -173,3 +173,38 @@ def test_engine_checks_input_device_dtype_and_rank():
         eng(torch.zeros(6))
     with pytest.raises(ValueError, match="backend must be one of"):
         engine.StencilEngine(spec, "pallas_sptc", device="cpu")
+
+
+def test_no_module_imports_a_private_name_of_the_engine():
+    """The engine's seam holds: no module of the port but ``core/engine.py``
+    imports a ``_``-prefixed name from ``repro_torch.core.engine``, or
+    reads one off the module imported whole."""
+    import ast
+    from pathlib import Path
+
+    import repro_torch
+    root = Path(repro_torch.__file__).resolve().parent
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        if path == root / "core" / "engine.py":
+            continue
+        tree = ast.parse(path.read_text(), filename=str(path))
+        aliases = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                if node.module == "repro_torch.core.engine":
+                    found += [f"{path.name}:{node.lineno} {a.name}"
+                              for a in node.names if a.name.startswith("_")]
+                elif node.module == "repro_torch.core":
+                    aliases |= {a.asname or a.name for a in node.names
+                                if a.name == "engine"}
+            elif isinstance(node, ast.Import):
+                aliases |= {a.asname for a in node.names
+                            if a.name == "repro_torch.core.engine"
+                            and a.asname}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Attribute) and node.attr.startswith("_")
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id in aliases):
+                found.append(f"{path.name}:{node.lineno} {node.attr}")
+    assert found == []

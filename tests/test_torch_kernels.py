@@ -366,8 +366,8 @@ def _rows2d_input(r, b, h, w, layout, dt, device, seed=0):
 
 def _rows_operand(eng, device, dt):
     """The rows kernel's tables of a 2-D box engine's plan."""
-    from repro_torch.core.engine import rows2d_operand
-    return rows2d_operand(eng.plan_ir, device, dt)
+    from repro_torch.core.engine import grid_operand
+    return grid_operand(eng.plan_ir, device, dt)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -380,12 +380,12 @@ def test_rows2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
     ``sptc_spmm_fused`` one, and equals the per-RowOp loop it replaces and
     the direct engine: in float32 the same sums in the same order as the
     loop, bit for bit."""
-    from repro_torch.core.engine import _emit_const, takes_rows2d
+    from repro_torch.core.engine import emit_row_ops, grid_kernel
     dt = getattr(torch, dtype)
     cpu = torch.device("cpu")
     spec = make_stencil("box", 2, r, seed=r)
     eng = StencilEngine(spec, "cuda_sptc", L=L, device="cpu", dtype=dt)
-    assert takes_rows2d(eng.plan_ir)
+    assert grid_kernel(eng.plan_ir, cpu) == "sptc_spmm_rows2d"
     xs = _rows2d_input(r, b, h, w, layout, dt, cpu)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -397,7 +397,7 @@ def test_rows2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
     unit = xs if xs.stride(2) == 1 else xs.contiguous()
     assert torch.equal(got, sptc_ops.sptc_spmm_rows2d(
         _rows_operand(eng, cpu, dt), unit))
-    loop = _emit_const(eng.plan_ir, cpu, dt)(xs)
+    loop = emit_row_ops(eng.plan_ir, cpu, dt)(xs)
     direct = torch.stack([StencilEngine(spec, "direct", device="cpu",
                                         dtype=dt)(x) for x in xs])
     tol = F32_TOL if dt == torch.float32 else BF16_TOL
@@ -416,11 +416,10 @@ def test_other_sptc_engines_keep_a_fused_region_per_row_op(shape, ndim, r,
     """The 1-D (``single``), star (``star-axis``: a 3-D one, and a 2-D one
     on the CPU) and 3-D (``rows``) engines on cuda_sptc keep one
     ``sptc_spmm_fused`` region per row op."""
-    from repro_torch.core.engine import takes_rows2d, takes_star2d
+    from repro_torch.core.engine import grid_kernel
     spec = make_stencil(shape, ndim, r, seed=2)
     eng = StencilEngine(spec, "cuda_sptc", device="cpu")
-    assert not takes_rows2d(eng.plan_ir)
-    assert not takes_star2d(eng.plan_ir, eng.device)
+    assert grid_kernel(eng.plan_ir, eng.device) is None
     x = torch.randn(tuple(s + 2 * r for s in dims))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -495,8 +494,8 @@ STAR2D_SHAPES = ((1, 13, 37, "contiguous"), (3, 5, 70, "contiguous"),
 
 def _star_operand(eng, device, dt):
     """The star kernel's tables of a 2-D star engine's plan."""
-    from repro_torch.core.engine import star2d_operand
-    return star2d_operand(eng.plan_ir, device, dt)
+    from repro_torch.core.engine import grid_operand
+    return grid_operand(eng.plan_ir, device, dt)
 
 
 def _star_plain(sop, xs):
@@ -516,16 +515,15 @@ def test_star2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
     per-RowOp loop it replaces (the engine's emission on the CPU) and the
     direct engine: in float32 the same sums in the same order as the loop,
     bit for bit."""
-    from repro_torch.core.engine import _emit_const, _emit_star2d, \
-        takes_star2d
+    from repro_torch.core.engine import emit_grid, emit_row_ops, grid_kernel
     dt = getattr(torch, dtype)
     cpu = torch.device("cpu")
     spec = make_stencil("star", 2, r, seed=r)
     eng = StencilEngine(spec, "cuda_sptc", L=L, device="cpu", dtype=dt)
-    assert takes_star2d(eng.plan_ir)
-    assert not takes_star2d(eng.plan_ir, cpu)
+    assert grid_kernel(eng.plan_ir) == "sptc_spmm_star2d"
+    assert grid_kernel(eng.plan_ir, cpu) is None
     xs = _rows2d_input(r, b, h, w, layout, dt, cpu)
-    star = _emit_star2d(eng.plan_ir, cpu, dt)
+    star = emit_grid(eng.plan_ir, cpu, dt)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         got = star(xs)
@@ -537,7 +535,7 @@ def test_star2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
     assert got.shape == (b, h, w) and got.dtype == dt
     unit = xs if xs.stride(2) == 1 else xs.contiguous()
     assert torch.equal(got, _star_plain(_star_operand(eng, cpu, dt), unit))
-    loop = _emit_const(eng.plan_ir, cpu, dt)(xs)
+    loop = emit_row_ops(eng.plan_ir, cpu, dt)(xs)
     assert torch.equal(
         eng.apply_batched(xs) if b > 1 else eng(xs[0])[None], loop)
     direct = torch.stack([StencilEngine(spec, "direct", device="cpu",
@@ -549,38 +547,74 @@ def test_star2d_on_cpu_matches_the_loop_and_direct(r, L, b, h, w, layout,
         assert torch.equal(got, loop)
 
 
-def test_takes_star2d_only_a_2d_star_axis_plan_on_cuda_sptc():
-    """The predicate reads the plan and the device: a 2-D ``star-axis``
-    plan on cuda_sptc with constant coefficients and an L the kernel holds,
-    on the card (a CUDA device, or ``None``), not on the CPU."""
+#: (case, (shape, ndim, r), lower_spec's arguments, a variable-coefficient
+#: plan, the device, the wrapper grid_kernel names)
+GRID_KERNEL_CASES = (
+    [("star", ("star", 2, 2), {}, False, None, "sptc_spmm_star2d"),
+     ("star-cuda", ("star", 2, 2), {}, False, "cuda", "sptc_spmm_star2d"),
+     ("star-cuda1", ("star", 2, 2), {}, False, "cuda:1", "sptc_spmm_star2d"),
+     ("star-cpu", ("star", 2, 2), {}, False, "cpu", None)]
+    + [(f"star-L{L}", ("star", 2, 2), {"L": L}, False, None,
+        "sptc_spmm_star2d") for L in range(6, 17, 2)]
+    + [("star-L18", ("star", 2, 2), {"L": 18}, False, None, None),
+       ("star-3d", ("star", 3, 1), {}, False, None, None),
+       ("star-cuda_gemm", ("star", 2, 2), {"backend": "cuda_gemm"}, False,
+        None, None),
+       ("star-sptc", ("star", 2, 2), {"backend": "sptc"}, False, None, None),
+       ("star-rows", ("star", 2, 2), {"star_fast_path": False}, False, None,
+        "sptc_spmm_rows2d"),
+       ("star-rows-cpu", ("star", 2, 2), {"star_fast_path": False}, False,
+        "cpu", "sptc_spmm_rows2d"),
+       ("star-var", ("star", 2, 2), {}, True, None, None)]
+    + [(f"box-r{r}-L{L}-cpu", ("box", 2, r), {"L": L}, False, "cpu",
+        "sptc_spmm_rows2d") for r, L in ROWS2D_CASES]
+    + [("box-L18", ("box", 2, 1), {"L": 18}, False, None, None),
+       ("box-var", ("box", 2, 1), {}, True, None, None),
+       ("box-1d-cpu", ("box", 1, 2), {}, False, "cpu", None),
+       ("box-3d-cpu", ("box", 3, 1), {}, False, "cpu", None),
+       ("star-3d-cpu", ("star", 3, 1), {}, False, "cpu", None)])
+
+
+@pytest.mark.parametrize("spec,kwargs,var,device,want",
+                         [c[1:] for c in GRID_KERNEL_CASES],
+                         ids=[c[0] for c in GRID_KERNEL_CASES])
+def test_grid_kernel_names_the_one_launch_wrapper(spec, kwargs, var, device,
+                                                  want):
+    """The one choice reads the plan and the device: a 2-D ``rows`` plan
+    on cuda_sptc with constant coefficients whose L and row ops the rows
+    kernel holds, anywhere; a 2-D ``star-axis`` one whose L the star kernel
+    holds, on the card (a CUDA device, or ``None``), not on the CPU; no
+    other plan.  ``kernel_launches`` counts the named wrapper once, and
+    otherwise a matrix kernel per row op."""
     import dataclasses
 
-    from repro_torch.core.engine import kernel_launches, takes_star2d
+    from repro_torch.core.engine import (GRID_WRAPPERS, grid_kernel,
+                                         kernel_launches)
     from repro_torch.core.ir import BackendEmit
     from repro_torch.core.transform import lower_spec
-    star2, star3 = make_stencil("star", 2, 2, seed=1), \
-        make_stencil("star", 3, 1, seed=1)
-    plan = lower_spec(star2, backend="cuda_sptc")
-    assert takes_star2d(plan)
-    assert kernel_launches(plan) == {"sptc_spmm_star2d": 1}
-    assert takes_star2d(plan, "cuda") and takes_star2d(plan, "cuda:1")
-    assert not takes_star2d(plan, "cpu")
-    assert kernel_launches(plan, "cpu") == {"sptc_spmm_fused": 2}
-    assert all(takes_star2d(lower_spec(star2, backend="cuda_sptc", L=L))
-               for L in range(6, 17, 2))
-    assert not takes_star2d(lower_spec(star2, backend="cuda_sptc", L=18))
-    assert not takes_star2d(lower_spec(star3, backend="cuda_sptc"))
-    assert not takes_star2d(lower_spec(star2, backend="cuda_gemm"))
-    assert not takes_star2d(lower_spec(star2, backend="sptc"))
-    rows = lower_spec(star2, backend="cuda_sptc", star_fast_path=False)
-    assert rows.decompose.mode == "rows" and not takes_star2d(rows)
-    assert kernel_launches(rows) == {"sptc_spmm_rows2d": 1}
-    assert kernel_launches(rows, "cpu") == {"sptc_spmm_rows2d": 1}
-    # a plan that carries variable coefficients keeps its emission
-    var = dataclasses.replace(plan, stages=tuple(
-        dataclasses.replace(s, coefficient_mode="var")
-        if isinstance(s, BackendEmit) else s for s in plan.stages))
-    assert not takes_star2d(var)
+    kwargs = {"backend": "cuda_sptc", **kwargs}
+    plan = lower_spec(make_stencil(*spec, seed=1), **kwargs)
+    if var:
+        plan = dataclasses.replace(plan, stages=tuple(
+            dataclasses.replace(s, coefficient_mode="var")
+            if isinstance(s, BackendEmit) else s for s in plan.stages))
+    assert grid_kernel(plan, device) == want
+    launches = kernel_launches(plan, device)
+    if want is not None:
+        assert want in GRID_WRAPPERS and launches == {want: 1}
+        return
+    assert not set(launches) & set(GRID_WRAPPERS)
+    if kwargs["backend"] == "cuda_sptc":
+        assert launches == {"sptc_spmm_fused": len(plan.decompose.ops)}
+
+
+def test_grid_operand_refuses_a_plan_no_kernel_takes():
+    from repro_torch.core.engine import grid_operand
+    from repro_torch.core.transform import lower_spec
+    plan = lower_spec(make_stencil("star", 3, 1, seed=1),
+                      backend="cuda_sptc")
+    with pytest.raises(ValueError, match="no one-launch kernel"):
+        grid_operand(plan, torch.device("cpu"), torch.float32)
 
 
 def test_sptc_spmm_star2d_wrapper_checks():
@@ -952,8 +986,8 @@ def test_cuda_sptc_rows2d_matches_plain(cuda_device, r, L, b, h, w, layout,
     if dt == torch.float32:
         # each row op summed as the fused kernel sums it, the ops added in
         # float32 as the per-RowOp loop adds them: the same bits
-        from repro_torch.core.engine import _emit_const
-        loop = _emit_const(eng.plan_ir, cuda_device, dt)(xs)
+        from repro_torch.core.engine import emit_row_ops
+        loop = emit_row_ops(eng.plan_ir, cuda_device, dt)(xs)
         torch.cuda.synchronize()
         assert torch.equal(got, loop)
 
@@ -986,8 +1020,8 @@ def test_cuda_sptc_star2d_matches_plain(cuda_device, r, L, b, h, w, layout,
     if dt == torch.float32:
         # each axis op summed as the fused kernel sums it, the two added in
         # float32 as the per-RowOp loop adds them: the same bits
-        from repro_torch.core.engine import _emit_const
-        loop = _emit_const(eng.plan_ir, cuda_device, dt)(xs)
+        from repro_torch.core.engine import emit_row_ops
+        loop = emit_row_ops(eng.plan_ir, cuda_device, dt)(xs)
         torch.cuda.synchronize()
         assert torch.equal(got, loop)
 

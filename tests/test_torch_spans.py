@@ -117,12 +117,12 @@ def test_2d_star_call_is_one_star_kernel_region_and_no_glue():
     plain version here), enters ``sptc_spmm_star2d`` once a call,
     ``sptc_spmm_fused`` never, and opens no glue span; its steps equal the
     per-RowOp loop's, which the CPU runs, bit for bit."""
-    from repro_torch.core.engine import _emit_star2d
+    from repro_torch.core.engine import emit_grid
     spec = make_stencil("star", 2, 3, seed=11)
     eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
     x = lowering.probe_input((30, 34), CPU)
     loop = eng.iterate(x, 4)
-    eng._fn = _emit_star2d(eng.plan_ir, CPU, torch.float32)
+    eng._fn = emit_grid(eng.plan_ir, CPU, torch.float32)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         y = eng.iterate(x, 4)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]

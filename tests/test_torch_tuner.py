@@ -339,18 +339,16 @@ def test_batch_runs_one_application_per_row_op(monkeypatch, backend, shape,
                             lambda *a, _fn=fn, **k: calls.append(1) or
                             _fn(*a, **k))
     rows = []
-    for name in ("sptc_spmm_rows2d", "sptc_spmm_star2d"):
-        monkeypatch.setattr(engine, name,
-                            lambda *a, _fn=getattr(engine, name):
-                            rows.append(1) or _fn(*a))
+    for name, fn in engine.GRID_WRAPPERS.items():
+        monkeypatch.setitem(engine.GRID_WRAPPERS, name,
+                            lambda *a, _fn=fn: rows.append(1) or _fn(*a))
     _, spec = _specs(shape, ndim, r, seed=3)
     eng = engine.StencilEngine(spec, backend, device=CPU)
     dims = (70,) if ndim == 1 else (17, 21)
     xs = torch.as_tensor(np.stack([_input(spec, dims, seed=i)
                                    for i in range(4)]))
     got = eng.apply_batched(xs)
-    if engine.takes_rows2d(eng.plan_ir) or engine.takes_star2d(eng.plan_ir,
-                                                               eng.device):
+    if engine.grid_kernel(eng.plan_ir, eng.device) is not None:
         assert (len(calls), len(rows)) == (0, 1)
     else:
         assert (len(calls), len(rows)) == (len(eng.plan_ir.decompose.ops), 0)

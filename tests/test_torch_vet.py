@@ -352,10 +352,10 @@ def test_fused_regions_equal_the_reference_pallas_calls():
         sym = f"{lowering.FUSED_KERNEL}/{spec.name}"
         napps = lowering.n_applications(spec, fused=False)
         assert ref_probes[sym]["pallas_call"] == napps, sym
-        want = ({lowering.ROWS_KERNEL: 1} if shape_kind == "box"
+        want = ({"sptc_spmm_rows2d": 1} if shape_kind == "box"
                 else {lowering.FUSED_KERNEL: napps})
-        card = ({lowering.ROWS_KERNEL: 1} if shape_kind == "box"
-                else {lowering.STAR_KERNEL: 1})
+        card = ({"sptc_spmm_rows2d": 1} if shape_kind == "box"
+                else {"sptc_spmm_star2d": 1})
         assert lowering.fused_programs(spec, CPU) == want, sym
         assert lowering.fused_programs(spec) == card, sym
         assert probes[sym]["programs"] == sum(want.values()), sym
