@@ -18,7 +18,9 @@ fifteen paths and the five examples, each with the launch counters set to
 * the stencil engine (``StencilEngine`` with the ``cuda_sptc``,
   ``cuda_gemm`` and ``cuda_direct`` backends) over the whole paper suite at
   the paper's size — 10240 x 10240 float32 grids for 2-D, 104,857,600
-  points for 1-D — against the ``direct`` backend on the card;
+  points for 1-D — against the ``direct`` backend on the card, and
+  ``iterate`` on the benchmark cells' engines, each step written in place,
+  against the re-pad loop bit for bit;
 * the v1 compressed SpMM entry (``apply_sptc_v1``, one
   ``sptc_spmm_windows`` launch per row op) applying box-2d1r at
   10240 x 10240 from swapped windows, against ``direct``;
@@ -3179,6 +3181,29 @@ def main() -> int:
         print(f"phase 3 box-2d3r {b}: iterate(10) max |err| {e_it:.3g}, "
               f"temporal_steps=2 {e_k2:.3g}, k=2 iterate(10) {e_k2it:.3g}")
     del x, x2, want_it, want_k2, want_blk
+    # iterate writes each step into the next haloed grid: the benchmark
+    # cells' engines against the re-pad loop (each call F.pad-ded), bit for
+    # bit, every step counted in place
+    for name, b in (("box-2d1r", "cuda_sptc"), ("box-1d2r", "cuda_sptc"),
+                    ("box-2d1r", "cuda_direct"), ("star-2d3r", "cuda_sptc")):
+        spec = next(s for s in suite if s.name == name)
+        pad = (spec.radius,) * (2 * spec.ndim)
+        dims = (N_1D,) if spec.ndim == 1 else (N_2D, N_2D)
+        x = F.pad(randn(*dims, seed=29), pad)
+        eng = StencilEngine(spec, b, device=dev)
+        done = StencilEngine.iterate.steps_in_place
+        got = eng.iterate(x, 10)
+        in_place = StencilEngine.iterate.steps_in_place - done
+        want = x
+        for _ in range(10):
+            want = F.pad(eng(want), pad)
+        same = torch.equal(got, want)
+        print(f"phase 3 {name} {b}: iterate(10), {in_place} steps in "
+              f"place, equals the re-pad loop bit for bit: {same}")
+        if not same or in_place != 10:
+            raise AssertionError(f"{name} {b}: iterate in place differs "
+                                 "from the re-pad loop")
+        del x, got, want, eng
     torch.cuda.synchronize()
     launches = {b: fn.launches for b, fn in counters.items()}
     print(f"phase 3 main path: {time.perf_counter() - t0:.1f} s, kernel "

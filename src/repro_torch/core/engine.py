@@ -51,16 +51,25 @@ transposed slice to a unit column stride, an application along a leading
 axis copies only for a batch of more than one grid, and the R results are
 added into a zero-filled accumulator.
 
+In place: ``iterate`` writes each step straight into the interior of the
+next haloed grid where the emitted step takes an output (``takes_out``, set
+in :func:`_emit_step`: a plan :func:`grid_kernel` names a kernel for, 1-D
+and 2-D ``cuda_direct``, a 1-D line on ``cuda_sptc``): two buffers a call,
+their halos zeroed once, a 2-D one's rows pitched to 32 bytes, and no fill
+or copy a step.  Every other plan re-pads each step's output with
+``F.pad``.
+
 Spans (``kernels/common.py::region``, on while a profiler is active):
-``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``
-and ``apply_batched`` around the emitted function, ``engine.pad`` per
-re-pad in ``iterate``.  Inside ``engine.apply`` the per-RowOp loop's glue
-has its own: ``engine.layout_copy`` around each copy made to give a
-kernel a unit column stride (opened only when a copy is made, so a
-contiguous grid opens none), and ``engine.accumulate`` around the zero
-fill of the accumulator and each ``acc + y`` (1 + R a call of R row ops,
-as the variable-coefficient emission and ``apply_sptc_v1`` open them too;
-the ``single`` emission opens none).
+``engine.iterate`` per ``iterate`` call, ``engine.apply`` per ``__call__``,
+``apply_batched`` and in-place step around the emitted function,
+``engine.pad`` around each of ``iterate``'s halo fills (one a buffer in
+place, one a step's re-pad otherwise).  Inside ``engine.apply`` the
+per-RowOp loop's glue has its own: ``engine.layout_copy`` around each
+copy made to give a kernel a unit column stride (opened only when a copy
+is made, so a contiguous grid opens none), and ``engine.accumulate``
+around the zero fill of the accumulator and each ``acc + y`` (1 + R a call
+of R row ops, as the variable-coefficient emission and ``apply_sptc_v1``
+open them too; the ``single`` emission opens none).
 
 Device rule: an engine runs on the card (``device=None`` means ``cuda``)
 unless the caller passes ``device="cpu"``; without a card, ``device=None``
@@ -69,7 +78,8 @@ raises instead of silently running on the CPU.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -189,18 +199,20 @@ def _op_spmm_v1(values: Tensor, meta: Tensor, order: Tensor, x2d: Tensor,
     return y.reshape(ntiles * L, -1)[:n_out]
 
 
-def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int) -> Tensor:
+def _op_cuda_sptc(op: FusedOperand, x2d: Tensor, n_out: int,
+                  out: Optional[Tensor] = None) -> Tensor:
     """Fused: ONE kernel — window read, in-kernel swap + segment gather from
     the packed meta words, dot.  Nothing is windowed, permuted or gathered
     outside it; the kernel takes any row stride, so only a transposed view
     (unit row stride) is copied first: the per-RowOp loop's applications
     along the last axis of a 2-D or 3-D grid, and along a leading axis of a
     batch of several grids.  A plan :func:`grid_kernel` names a kernel
-    for never comes here (:func:`emit_grid`)."""
+    for never comes here (:func:`emit_grid`).  ``out``, where given, is
+    written and returned (a line's, from :func:`_apply_op`)."""
     if x2d.shape[1] > 1 and x2d.stride(1) != 1:
         with region("engine.layout_copy"):
             x2d = x2d.contiguous()
-    return sptc_spmm_fused(op, x2d, n_out=n_out)
+    return sptc_spmm_fused(op, x2d, n_out=n_out, out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -288,13 +300,18 @@ def _fused_operand(plan: LoweredPlan, i: int, device: torch.device,
                          device=device)
 
 
-def _apply_op(fn: OpFn, x: Tensor, n_out: int, axis: int) -> Tensor:
+def _apply_op(fn: OpFn, x: Tensor, n_out: int, axis: int,
+              out: Optional[Tensor] = None) -> Tensor:
     """Run one 1-D application along ``axis`` of ``x``; every other axis (a
-    leading batch axis too) folds into the columns."""
+    leading batch axis too) folds into the columns.  ``out``, where given,
+    is handed to ``fn`` folded the same way (a view, never a copy)."""
     x = torch.movedim(x, axis, 0)
     rest = x.shape[1:]
     x2d = x.reshape(x.shape[0], -1)
-    y = fn(x2d, n_out)
+    if out is None:
+        y = fn(x2d, n_out)
+    else:
+        y = fn(x2d, n_out, out=torch.movedim(out, axis, 0).view(n_out, -1))
     return torch.movedim(y.reshape((n_out,) + rest), 0, axis)
 
 
@@ -348,8 +365,8 @@ def emit_row_ops(plan: LoweredPlan, device: torch.device,
     if mode == "single":
         f0 = op_fns[0]
 
-        def fn1(xs: Tensor) -> Tensor:
-            return _apply_op(f0, xs, xs.shape[1] - 2 * r, 1)
+        def fn1(xs: Tensor, out: Optional[Tensor] = None) -> Tensor:
+            return _apply_op(f0, xs, xs.shape[1] - 2 * r, 1, out)
         return fn1
 
     def fn(xs: Tensor) -> Tensor:
@@ -435,21 +452,21 @@ def grid_operand(plan: LoweredPlan, device: torch.device,
 
 
 def emit_grid(plan: LoweredPlan, device: torch.device,
-              dtype: torch.dtype) -> ApplyFn:
+              dtype: torch.dtype) -> Callable[..., Tensor]:
     """Every row op of a plan :func:`grid_kernel` names a kernel for (on
     the card) in one launch of that wrapper on ``(B, H + 2r, W + 2r)``: the
     batch is read where it lies and the ``(B, H, W)`` interior written
-    once, the row ops summed on chip (``kernels/csrc/sptc_rows2d.cu``,
-    ``sptc_star2d.cu``)."""
+    once, into ``out`` where given, the row ops summed on chip
+    (``kernels/csrc/sptc_rows2d.cu``, ``sptc_star2d.cu``)."""
     gop = grid_operand(plan, device, dtype)
     wrapper = GRID_WRAPPERS[grid_kernel(plan)]  # type: ignore[index]
 
-    def fn(xs: Tensor) -> Tensor:
+    def fn(xs: Tensor, out: Optional[Tensor] = None) -> Tensor:
         # the kernel takes any batch and row stride, not a column stride
         if xs.shape[2] > 1 and xs.stride(2) != 1:
             with region("engine.layout_copy"):
                 xs = xs.contiguous()
-        return wrapper(gop, xs)
+        return wrapper(gop, xs, out=out)
     return fn
 
 
@@ -567,22 +584,37 @@ def _emit_var(plan: LoweredPlan, device: torch.device,
     return fn
 
 
+def _takes_out(fn: Callable[..., Tensor]) -> ApplyFn:
+    """Mark a step that also takes ``out=``: it writes its ``(B, *interior)``
+    result there, and ``iterate`` writes such steps in place."""
+    fn.takes_out = True             # type: ignore[attr-defined]
+    return fn
+
+
 def _emit_step(plan: LoweredPlan, device: torch.device,
                dtype: torch.dtype) -> ApplyFn:
     """One stencil application on ``(B, *spatial)`` from the plan's tables
-    (temporal_steps ignored)."""
+    (temporal_steps ignored).  The only place a step is marked
+    :func:`_takes_out`, from the plan: 1-D and 2-D ``cuda_direct``
+    (``stencil2d``), a plan :func:`grid_kernel` names a one-launch kernel
+    for, and a 1-D ``cuda_sptc`` line (the ``single`` emission's fused
+    kernel).  Their plain versions write into ``out`` on the CPU."""
     if plan.emit.backend == "cuda_direct":
         from repro_torch.kernels import dispatch as kdispatch
         fn: ApplyFn = kdispatch.build(plan.spec, plan.emit.backend, plan.L,
                                       device)
-        return fn
+        return _takes_out(fn) if plan.spec.ndim <= 2 else fn
     if plan.emit.coefficient_mode == "var":
         return _per_job(_emit_var(plan, device, dtype))
     if plan.decompose.mode == "fused-rows":
         return _per_job(_emit_fused_2d(plan, device, dtype))
     if grid_kernel(plan, device) is not None:
-        return emit_grid(plan, device, dtype)
-    return emit_row_ops(plan, device, dtype)
+        return _takes_out(emit_grid(plan, device, dtype))
+    fn = emit_row_ops(plan, device, dtype)
+    if (plan.emit.backend == "cuda_sptc" and plan.spec.ndim == 1
+            and plan.decompose.mode == "single"):
+        return _takes_out(fn)
+    return fn
 
 
 def emit(plan: LoweredPlan, device: Device = None,
@@ -668,21 +700,108 @@ class StencilEngine:
             return self._fn(xs)
 
     def iterate(self, x: Tensor, steps: int) -> Tensor:
-        """Iterative (Jacobi-style) application with zero-halo re-padding.
+        """Iterative (Jacobi-style) application with a zero halo: each
+        step's output, padded with zeros, is the next step's input.
 
         A temporal-blocked engine advances ``k`` steps per loop iteration
         (``x`` then carries the ``k·r`` halo); ``steps`` must be a multiple
-        of ``k``.
+        of ``k``.  Where the emitted step takes an output (``takes_out``,
+        see :func:`_emit_step`; and ``__call__`` is the engine's own: a
+        subclass or patch that replaces it is iterated through it), the
+        call allocates two haloed grids, zeroes only their halos, and each
+        step writes straight into the interior of one of them, reading
+        ``x`` and then the other's (each grid is made by the step that
+        first writes it, its halo zeroed after that step's launch): the
+        re-pad's values bit for bit, with no fill and no copy a step.
+        ``x`` is never written, and the grid returned is not written again;
+        a 2-D one is a view whose rows are pitched to ``ROW_ALIGN`` bytes
+        (see :func:`_haloed`), so it need not be contiguous.  Otherwise
+        each step's output is re-padded (``F.pad``).  ``iterate.steps`` and
+        ``iterate.steps_in_place`` count the steps run and those written in
+        place.
         """
         k = self.temporal_steps
         if steps % k != 0:
             raise ValueError(
                 f"steps={steps} must be a multiple of temporal_steps={k}")
-        pad = (k * self.spec.radius,) * (2 * self.spec.ndim)
+        in_place = (getattr(self._fn, "takes_out", False)
+                    and type(self).__call__ is _ENGINE_CALL)
+        counts: Any = StencilEngine.iterate
+        counts.steps += steps
+        if not in_place:
+            pad = (k * self.spec.radius,) * (2 * self.spec.ndim)
+            with region("engine.iterate"):
+                for _ in range(steps // k):
+                    x = _repad(self(x), pad)
+            return x
+        self._check(x, self.spec.ndim, f"{self.spec.ndim}-D")
+        counts.steps_in_place += steps
+        r = self.spec.radius
+        inner = tuple(slice(r, n - r) for n in x.shape)
         with region("engine.iterate"):
-            for _ in range(steps // k):
-                x = _repad(self(x), pad)
+            grids: List[Tensor] = []
+            for i in range(steps):
+                if i < 2:
+                    grids.append(_haloed(x, r))
+                y = grids[i % 2]
+                with region("engine.apply"):
+                    self._fn(x[None], out=y[inner][None])
+                if i < 2:
+                    # the step wrote the interior alone; the halo is zeroed
+                    # after its launch, so a call's first device op is a step
+                    _zero_halo(y, r)
+                x = y
         return x
+
+
+StencilEngine.iterate.steps = 0             # type: ignore[attr-defined]
+StencilEngine.iterate.steps_in_place = 0    # type: ignore[attr-defined]
+#: the engine's own step, which ``iterate`` may write in place
+_ENGINE_CALL = StencilEngine.__call__
+
+
+#: the byte boundary every interior row of ``iterate``'s 2-D grids starts
+#: on: on an H100 the rows kernel's stores took about 30 % longer into rows
+#: 4 bytes off 16, and 15-25 % longer into rows 16 bytes off 32
+ROW_ALIGN = 32
+
+
+def _haloed(like: Tensor, h: int) -> Tensor:
+    """An uninitialised grid of ``like``'s shape, dtype and device for
+    ``iterate`` to write, its halo zeroed by :func:`_zero_halo`.  A line is
+    contiguous; a 2-D grid is a view of a wider allocation whose rows are
+    pitched so that each interior row starts on a ``ROW_ALIGN``-byte
+    boundary."""
+    if like.dim() == 1 or min(like.shape) <= 2 * h:
+        return torch.empty(like.shape, dtype=like.dtype, device=like.device)
+    rows, cols = like.shape
+    v = max(1, ROW_ALIGN // like.element_size())
+    lead = -h % v                                    # spare columns before
+    alloc = torch.empty((rows, -(-(lead + cols) // v) * v), dtype=like.dtype,
+                        device=like.device)
+    return alloc[:, lead:lead + cols]
+
+
+def _zero_halo(grid: Tensor, h: int) -> None:
+    """Zero the ``h``-wide halo of a grid :func:`_haloed` made, in an
+    ``engine.pad`` span.  In memory the halo is the span before the first
+    interior element and the one after the last, of one length (one fill),
+    and on a 2-D grid the gaps between one interior row and the next, with
+    the pitch's spare columns (a second)."""
+    with region("engine.pad"):
+        if min(grid.shape) <= 2 * h:                 # no interior
+            grid.zero_()
+        elif grid.dim() == 1:
+            grid.as_strided((2, h), (grid.shape[0] - h, 1)).zero_()
+        else:
+            rows, cols = grid.shape
+            pitch, at = grid.stride(0), grid.storage_offset()
+            edge = h * pitch + h
+            grid.as_strided((2, edge), ((rows - h - 1) * pitch + cols - h, 1)
+                            ).zero_()
+            if rows - 2 * h > 1:
+                grid.as_strided((rows - 2 * h - 1, pitch - cols + 2 * h),
+                                (pitch, 1), at + edge + cols - 2 * h).zero_()
 
 
 def _repad(y: Tensor, pad: Tuple[int, ...]) -> Tensor:

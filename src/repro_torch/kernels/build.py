@@ -52,12 +52,13 @@ SIGNATURES: Dict[str, List[type]] = {
     "spider_sptc_fused": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                           _I, _I, _P],
     "spider_sptc_rows2d": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                           _I64, _I64, _I64, _I64, _I64, _I, _I, _P],
+                           _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I,
+                           _P],
     "spider_sptc_star2d": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                           _I64, _I64, _I64, _I, _I, _P],
+                           _I64, _I64, _I64, _I64, _I64, _I, _I, _P],
     "spider_windows_gemm": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "spider_stencil2d": [_P, _P, _P, _I64, _I64, _I, _I64, _I64, _I64, _I64,
-                         _I64, _I, _P],
+                         _I64, _I64, _I64, _I, _P],
     "spider_sptc_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                          _I, _P],
     "spider_conv1d_causal": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,

@@ -1,4 +1,5 @@
-"""The port's span: one ``torch.profiler.record_function`` range.
+"""The port's span, one ``torch.profiler.record_function`` range, and the
+kernel wrappers' check of an ``out`` argument.
 
 :func:`region` is the only span ``repro_torch`` opens.  Spans are on
 exactly while a ``torch.profiler`` is active, so they share the profiler's
@@ -15,16 +16,18 @@ one flag check.  Two families open it:
 * ``core/engine.py``'s ``StencilEngine`` (``ENGINE_SPANS``): one
   ``engine.iterate`` per ``iterate`` call, one ``engine.apply`` per engine
   call around its emitted function (the kernel regions nest inside it),
-  one ``engine.pad`` per re-pad of ``iterate``; inside ``engine.apply``,
-  ``engine.layout_copy`` around each copy the engine makes to give a
-  kernel a unit column stride, and ``engine.accumulate`` around the
-  per-RowOp loop's zero fill and each of its adds.  The launch audit walks
-  through them, so the work inside them is counted as the engine's.
+  ``engine.pad`` around ``iterate``'s halo work (the zeroing of each of
+  its two buffers' halos, or the fallback's re-pad); inside
+  ``engine.apply``, ``engine.layout_copy`` around each copy the engine
+  makes to give a kernel a unit column stride, and ``engine.accumulate``
+  around the per-RowOp loop's zero fill and each of its adds.  The launch
+  audit walks through them, so the work inside them is counted as the
+  engine's.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import ContextManager
+from typing import ContextManager, Sequence, Tuple
 
 import torch
 
@@ -53,3 +56,29 @@ def region(name: str) -> ContextManager:
     if not torch.autograd._profiler_enabled():
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)
+
+
+def _byte_span(t: torch.Tensor) -> Tuple[int, int]:
+    """The first and one-past-last byte addresses ``t`` can touch."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def check_out(out: torch.Tensor, shape: Sequence[int],
+              x: torch.Tensor) -> None:
+    """Check a wrapper's ``out`` against the result it takes: ``shape``,
+    ``x``'s dtype and device, a unit column stride, and no byte in the
+    span of ``x`` (a step never writes what it reads)."""
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out must be of shape {tuple(shape)}, got "
+                         f"{tuple(out.shape)}")
+    if out.dtype != x.dtype:
+        raise TypeError(f"out dtype {out.dtype} != input dtype {x.dtype}")
+    if out.device != x.device:
+        raise ValueError(f"out lies on {out.device}, the input on {x.device}")
+    if out.dim() and out.shape[-1] > 1 and out.stride(-1) != 1:
+        raise ValueError("out needs a unit column stride")
+    if out.numel() and x.numel():
+        (o0, o1), (x0, x1) = _byte_span(out), _byte_span(x)
+        if o0 < x1 and x0 < o1:
+            raise ValueError("out overlaps the input")

@@ -7,7 +7,9 @@
 // A_u, the (L, 2L) strided-swapped 2:4 matrix, along the last axis of the
 // input rows shifted by lead_u).  x is the raw haloed (B, H + 2r, W + 2r)
 // grid with any batch and row stride and a unit column stride, read where
-// it lies; y the contiguous (B, H, W) interior, written once.
+// it lies; y the (B, H, W) interior, written once: any batch and row
+// stride and a unit column stride, so a contiguous tensor or the interior of
+// the next step's haloed grid.
 //
 // Replaces no TPU kernel: the reference runs one pallas_call per row op
 // (src/repro/kernels/sptc_spmm/kernel.py::_fused_kernel) on a transposed
@@ -102,6 +104,7 @@ struct Params {
   const uint32_t* a;       // (R, nks, 2, 32) A fragment words
   const uint32_t* e;       // (R, nks, 32) metadata words
   int64_t B, H, W, rows_in, cols_in, sb, ld, lead_bits;
+  int64_t ob, oh;          // output batch and row strides
   int64_t tiles, row_blocks, col_blocks, runs;
   int L, R, nks, halo, tiles_per_run;
   int vec, shift, row_vecs;   // bytes a copy, elements, copies a staged row
@@ -350,11 +353,11 @@ sptc_rows2d_kernel(const Params p) {
         const int64_t col = (tile0 + q) * L + m;
         if (m >= L || col >= p.W) continue;
         const int64_t row = row0 + 2 * t;
-        T* yq = y + (b * p.H + row) * p.W + col;
+        T* yq = y + b * p.ob + row * p.oh + col;
 #pragma unroll
-        for (int j = 0; j < kSlabs; ++j, yq += 8 * p.W) {
+        for (int j = 0; j < kSlabs; ++j, yq += 8 * p.oh) {
           if (row + 8 * j < p.H) yq[0] = from_f32<T>(d[j][2 * h]);
-          if (row + 8 * j + 1 < p.H) yq[p.W] = from_f32<T>(d[j][2 * h + 1]);
+          if (row + 8 * j + 1 < p.H) yq[p.oh] = from_f32<T>(d[j][2 * h + 1]);
         }
       }
     }
@@ -388,7 +391,8 @@ int launch(Params p, cudaStream_t stream) {
 }  // namespace spider
 
 // x: (B, H + halo, W + halo) with batch stride sb, row stride ld and unit
-// column stride; y: (B, H, W) contiguous; a, e: the R row operands' per-lane
+// column stride; y: (B, H, W) with batch stride ob, row stride oh and unit
+// column stride; a, e: the R row operands' per-lane
 // fragment tables of the route stacked on the leading axis (R, nks, 2, 32)
 // and (R, nks, 32) (kernels/sptc_spmm/fragments.py, one 16-row M block
 // each); lead_bits: op u's row offset in bits [4u, 4u + 4).  route 0:
@@ -396,9 +400,10 @@ int launch(Params p, cudaStream_t stream) {
 extern "C" int spider_sptc_rows2d(const void* x, void* y, const void* a,
                                   const void* e, int64_t B, int64_t H,
                                   int64_t W, int64_t sb, int64_t ld,
-                                  int64_t halo, int64_t L, int64_t R,
-                                  int64_t lead_bits, int64_t nks, int route,
-                                  int dtype, void* stream) {
+                                  int64_t ob, int64_t oh, int64_t halo,
+                                  int64_t L, int64_t R, int64_t lead_bits,
+                                  int64_t nks, int route, int dtype,
+                                  void* stream) {
   using namespace spider::rows2d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = L >= 2 && L % 2 == 0 && L <= kMaxL && R >= 1 && R <= kMaxR &&
@@ -407,7 +412,7 @@ extern "C" int spider_sptc_rows2d(const void* x, void* y, const void* a,
   for (int64_t u = 0; ok && u < R; ++u) ok = ((lead_bits >> (4 * u)) & 15) <= halo;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, y, static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(e),
-           B, H, W, H + halo, W + halo, sb, ld, lead_bits,
+           B, H, W, H + halo, W + halo, sb, ld, lead_bits, ob, oh,
            0, 0, 0, 0, static_cast<int>(L), static_cast<int>(R),
            static_cast<int>(nks), static_cast<int>(halo), 0, 0, 0, 0};
   if (dtype == spider::kFloat32 && route == kRouteTF32) {

@@ -8,8 +8,9 @@
 // 1-D operand (centre tap zeroed), A_1 the last axis's (centre kept), each
 // the (L, 2L) strided-swapped 2:4 matrix of its axis.  x is the raw haloed
 // (B, H + 2r, W + 2r) grid with any batch and row stride and a unit column
-// stride, read where it lies; y the contiguous (B, H, W) interior, written
-// once.
+// stride, read where it lies; y the (B, H, W) interior, written once: any
+// batch and row stride and a unit column stride, so a contiguous tensor or
+// the interior of the next step's haloed grid.
 //
 // Replaces no TPU kernel: the reference runs one pallas_call per axis
 // (src/repro/kernels/sptc_spmm/kernel.py::_fused_kernel), the last axis's on
@@ -46,10 +47,11 @@
 // sums are written to a float32 output tile in shared memory, and after a
 // barrier op 0 adds its own sums to them (op 0's value + op 1's value, in
 // float32, as the per-RowOp loop adds the two results).  After another,
-// each warp stores whole rows of the tile, 16 bytes a lane where the row
-// allows: the interior written once, in full sectors (storing from op 0's
-// fragments instead took 7 % longer at L = 8 and 14 % at L = 4, 4 % less at
-// L = 6).  Each op is summed on the tensor cores exactly as sptc_fused.cu
+// each warp stores whole rows of the tile, 16 bytes a lane where the row's
+// address allows (elsewhere, such as every row of the interior of a haloed
+// 10246-wide grid, 4 bytes a lane): the interior written once, in full
+// sectors (storing from op 0's fragments instead took 7 % longer at L = 8
+// and 14 % at L = 4, 4 % less at L = 6).  Each op is summed on the tensor cores exactly as sptc_fused.cu
 // sums it (below), so in float32 the result equals the loop's bit for bit.
 // Routes:
 //   * float32: mma.sp.m16n8k8.tf32 on the pair-aligned 1:2 operand, as
@@ -135,6 +137,7 @@ struct Params {
   const uint32_t* a;       // (2, nks, 2, 32) A fragment words: op 0, op 1
   const uint32_t* e;       // (2, nks, 32) metadata words
   int64_t B, H, W, rows_in, cols_in, sb, ld;
+  int64_t ob, oh;          // output batch and row strides
   int row_blocks, col_blocks, runs;   // 32-bit: a division a run is cheap
   int r;
   int vec, shift, row_vecs;   // bytes a copy, elements, copies a staged row
@@ -430,16 +433,17 @@ sptc_star2d_kernel(const Params p) {
     }
     __syncthreads();      // both ops' sums in the tile
 
-    // the interior, a warp a row: 16-byte stores where the row starts
-    // 4-element aligned and the tile lies inside it
+    // the interior, a warp a row: 16-byte stores (8 in bfloat16) where the
+    // row's first address is a multiple of them and the tile lies inside it
     const int64_t col0 = static_cast<int64_t>(cb) * CW;
     const int n = static_cast<int>(min64(CW, p.W - col0));
     for (int row = warp; row < RH; row += kWarps) {
       const int64_t grow = static_cast<int64_t>(rb) * RH + row;
       if (grow >= p.H) break;
-      const int64_t base = (b * p.H + grow) * p.W + col0;
+      const int64_t base = b * p.ob + grow * p.oh + col0;
       const float* o = out + row * kSO;
-      if (n == CW && base % 4 == 0) {
+      if (n == CW &&
+          reinterpret_cast<uintptr_t>(y + base) % (4 * sizeof(T)) == 0) {
         for (int c = 4 * lane; c < CW; c += 128)
           store4<T>(y + base + c, *reinterpret_cast<const float4*>(o + c));
       } else {
@@ -487,14 +491,16 @@ int launch_l(Params p, int64_t L, cudaStream_t s) {
 }  // namespace spider
 
 // x: (B, H + 2r, W + 2r) with batch stride sb, row stride ld and unit
-// column stride; y: (B, H, W) contiguous; a, e: the two axis operands'
+// column stride; y: (B, H, W) with batch stride ob, row stride oh and unit
+// column stride; a, e: the two axis operands'
 // per-lane fragment tables of the route, the leading axis's first, (2, nks,
 // 2, 32) and (2, nks, 32) (kernels/sptc_spmm/fragments.py, one 16-row M
 // block each).  Even L from 2r + 2 to 16.  route 0: float32 storage as
 // 3xTF32; route 1: bfloat16 storage.
 extern "C" int spider_sptc_star2d(const void* x, void* y, const void* a,
                                   const void* e, int64_t B, int64_t H,
-                                  int64_t W, int64_t sb, int64_t ld, int64_t r,
+                                  int64_t W, int64_t sb, int64_t ld,
+                                  int64_t ob, int64_t oh, int64_t r,
                                   int64_t L, int64_t nks, int route, int dtype,
                                   void* stream) {
   using namespace spider::star2d;
@@ -505,7 +511,7 @@ extern "C" int spider_sptc_star2d(const void* x, void* y, const void* a,
                   H >= 1 && W >= 1;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, y, static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(e),
-           B, H, W, H + 2 * r, W + 2 * r, sb, ld, 0, 0, 0,
+           B, H, W, H + 2 * r, W + 2 * r, sb, ld, ob, oh, 0, 0, 0,
            static_cast<int>(r), 0, 0, 0};
   if (dtype == spider::kFloat32 && route == kRouteTF32)
     return launch_l<float, kRouteTF32>(p, L, s);

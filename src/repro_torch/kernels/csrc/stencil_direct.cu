@@ -1,5 +1,7 @@
 // Direct 2-D stencil: (B, H + 2rh, W + 2rw) -> (B, H, W) by shifted
-// multiply-adds over the taps, accumulated in float32.
+// multiply-adds over the taps, accumulated in float32.  The output is any
+// (B, H, W) view with a unit column stride: a contiguous tensor, or the
+// interior of the next step's haloed grid.
 //
 // Replaces the TPU kernel src/repro/kernels/stencil_direct/kernel.py::
 // _stencil_kernel (pallas_call in _stencil2d_jit).
@@ -39,6 +41,7 @@ struct DirectParams {
   const void* x;
   void* y;
   int64_t B, H, W, sb, sh;
+  int64_t ob, oh;                          // output batch and row strides
   float w[(2 * kMaxR + 1) * (2 * kMaxR + 1)];   // (2rh+1, 2rw+1) row-major
 };
 
@@ -59,7 +62,7 @@ stencil2d_kernel(const DirectParams p) {
 
   for (int64_t b = blockIdx.z; b < p.B; b += gridDim.z) {
     const T* xb = x + b * p.sb;
-    T* yb = y + b * p.H * p.W;
+    T* yb = y + b * p.ob;
     for (int th = blockIdx.y; th < tiles_h; th += gridDim.y) {
       const int h0 = th * TH;
       __syncthreads();                   // the previous tile is consumed
@@ -79,7 +82,7 @@ stencil2d_kernel(const DirectParams p) {
 #pragma unroll
           for (int v = 0; v < KW; ++v) acc = fmaf(p.w[v], s[c + v], acc);
           if (h0 < H && w0 + c < W)
-            yb[static_cast<int64_t>(h0) * W + w0 + c] = from_f32<T>(acc);
+            yb[static_cast<int64_t>(h0) * p.oh + w0 + c] = from_f32<T>(acc);
         }
       } else {
         const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
@@ -108,7 +111,7 @@ stencil2d_kernel(const DirectParams p) {
         for (int o = 0; o < kStrip; ++o) {
           const int gh = h0 + ty * kStrip + o;
           if (gh < H && gw < W)
-            yb[static_cast<int64_t>(gh) * W + gw] = from_f32<T>(acc[o]);
+            yb[static_cast<int64_t>(gh) * p.oh + gw] = from_f32<T>(acc[o]);
         }
       }
     }
@@ -151,19 +154,21 @@ int launch_taps(int rh, int rw, bool star, const DirectParams& p,
 }  // namespace spider
 
 // x: (B, H + 2rh, W + 2rw) with batch stride sb, row stride sh and unit
-// column stride; y: (B, H, W) contiguous; weights: host (2rh+1, 2rw+1)
+// column stride; y: (B, H, W) with batch stride ob, row stride oh and unit
+// column stride; weights: host (2rh+1, 2rw+1)
 // float32 row-major, copied into the kernel's parameters; star: every
 // non-zero weight lies on the centre row or column.  rh, rw <= 3; H and W
 // below 2^31 - 8.
 extern "C" int spider_stencil2d(const void* x, void* y, const float* weights,
                                 int64_t rh, int64_t rw, int star, int64_t B,
                                 int64_t H, int64_t W, int64_t sb, int64_t sh,
-                                int dtype, void* stream) {
+                                int64_t ob, int64_t oh, int dtype,
+                                void* stream) {
   using namespace spider;
   if (rh < 0 || rw < 0 || rh > kMaxR || rw > kMaxR || B < 1 || H < 1 ||
       W < 1 || H + 2 * rh > 0x7FFFFFF0 || W + 2 * rw > 0x7FFFFFF0)
     return static_cast<int>(cudaErrorInvalidValue);
-  DirectParams p{x, y, B, H, W, sb, sh, {}};
+  DirectParams p{x, y, B, H, W, sb, sh, ob, oh, {}};
   for (int64_t i = 0; i < (2 * rh + 1) * (2 * rw + 1); ++i) p.w[i] = weights[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r_h = static_cast<int>(rh), r_w = static_cast<int>(rw);

@@ -69,7 +69,7 @@ def build(spec: StencilSpec, backend: str, L: int,
 
     if spec.ndim <= 2:
         taps = stencil_taps(w, device)
-        return lambda xs: stencil2d(taps, xs)
+        return lambda xs, out=None: stencil2d(taps, xs, out=out)
 
     # 3-D: decompose the leading axis (paper §3.2.1 row decomposition,
     # lifted one dimension): y[a] = sum_u stencil2d(w[u]) applied to x[a+u];

@@ -54,8 +54,8 @@ def sptc_rows2d_launch(xs: torch.Tensor, y: torch.Tensor,
                        lead_bits: int, tf32: bool) -> None:
     """Launch on the current stream; returns without synchronising.
 
-    ``xs`` (B, H + halo, W + halo) with a unit column stride, ``y`` (B, H,
-    W) contiguous; ``frags`` the row ops' tables of the route stacked on
+    ``xs`` (B, H + halo, W + halo) and ``y`` (B, H, W), each with a unit
+    column stride; ``frags`` the row ops' tables of the route stacked on
     the leading axis; op u's row offset in bits [4u, 4u + 4) of
     ``lead_bits``.
     """
@@ -64,9 +64,10 @@ def sptc_rows2d_launch(xs: torch.Tensor, y: torch.Tensor,
     with torch.cuda.device(xs.device):
         status = lib.spider_sptc_rows2d(
             xs.data_ptr(), y.data_ptr(), frags.a.data_ptr(),
-            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1), halo, L,
-            frags.a.shape[0], lead_bits, frags.ksteps, 0 if tf32 else 1,
-            DTYPE_CODES[xs.dtype], stream_ptr(xs.device))
+            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1),
+            y.stride(0), y.stride(1), halo, L, frags.a.shape[0], lead_bits,
+            frags.ksteps, 0 if tf32 else 1, DTYPE_CODES[xs.dtype],
+            stream_ptr(xs.device))
     check(status, "spider_sptc_rows2d")
 
 
@@ -75,8 +76,8 @@ def sptc_star2d_launch(xs: torch.Tensor, y: torch.Tensor,
                        tf32: bool) -> None:
     """Launch on the current stream; returns without synchronising.
 
-    ``xs`` (B, H + 2r, W + 2r) with a unit column stride, ``y`` (B, H, W)
-    contiguous; ``frags`` the two axis ops' tables of the route stacked on
+    ``xs`` (B, H + 2r, W + 2r) and ``y`` (B, H, W), each with a unit column
+    stride; ``frags`` the two axis ops' tables of the route stacked on
     the leading axis, the leading axis's first.
     """
     lib = library()
@@ -84,9 +85,9 @@ def sptc_star2d_launch(xs: torch.Tensor, y: torch.Tensor,
     with torch.cuda.device(xs.device):
         status = lib.spider_sptc_star2d(
             xs.data_ptr(), y.data_ptr(), frags.a.data_ptr(),
-            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1), radius,
-            L, frags.ksteps, 0 if tf32 else 1, DTYPE_CODES[xs.dtype],
-            stream_ptr(xs.device))
+            frags.e.data_ptr(), b, h, w, xs.stride(0), xs.stride(1),
+            y.stride(0), y.stride(1), radius, L, frags.ksteps,
+            0 if tf32 else 1, DTYPE_CODES[xs.dtype], stream_ptr(xs.device))
     check(status, "spider_sptc_star2d")
 
 

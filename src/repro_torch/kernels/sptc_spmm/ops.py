@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES, SMEM_LIMIT
-from repro_torch.kernels.common import region
+from repro_torch.kernels.common import check_out, region
 from repro_torch.kernels.sptc_spmm import fragments as fr
 from repro_torch.kernels.sptc_spmm.kernel import (sptc_fused_launch,
                                                   sptc_rows2d_launch,
@@ -135,25 +135,38 @@ def _check(op: FusedOperand, x2d: torch.Tensor, n_out: int,
 
 
 def sptc_spmm_fused(op: FusedOperand, x2d: torch.Tensor, *, n_out: int,
-                    compute_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    compute_dtype: Optional[torch.dtype] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused application: window read → swap + gather → dot.
 
     ``x2d`` is the raw (>= n_out + 2r, C) haloed input — not windowed, not
     swapped, any row stride.  Returns the (n_out, C) stencil output in
     ``x2d.dtype``, accumulated in float32; ``compute_dtype=torch.bfloat16``
-    rounds the window and the values to bf16 first.
+    rounds the window and the values to bf16 first.  ``out``, where given,
+    is written and returned instead: a contiguous (n_out, C) tensor that
+    shares no byte with ``x2d``, such as the interior of the next step's
+    haloed line viewed as (n_out, 1).
     """
     _check(op, x2d, n_out, compute_dtype)
+    if out is not None:
+        check_out(out, (n_out, x2d.shape[1]), x2d)
+        if not out.is_contiguous():
+            raise ValueError("out must be contiguous: the kernel writes "
+                             "whole (n_out, C) rows")
+        if x2d.shape[1] % 2 == 0 and out.data_ptr() % (2 * out.element_size()):
+            raise ValueError("out of an even C must start on an even "
+                             "element: the kernel stores column pairs")
     L = op.values.shape[0]
     if x2d.device.type == "cpu":
         with region("sptc_spmm_fused"):
-            return sptc_fused_ref(op.values, op.meta_words, x2d, n_out=n_out,
-                                  L=L, star_fast=op.star_fast,
-                                  compute_dtype=compute_dtype)
+            y = sptc_fused_ref(op.values, op.meta_words, x2d, n_out=n_out,
+                               L=L, star_fast=op.star_fast,
+                               compute_dtype=compute_dtype)
+            return y if out is None else out.copy_(y)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
-    y = torch.empty((n_out, x2d.shape[1]), dtype=x2d.dtype, device=x2d.device)
+    y = (torch.empty((n_out, x2d.shape[1]), dtype=x2d.dtype,
+                     device=x2d.device) if out is None else out)
     if y.numel() == 0:
         return y
     # a float32 operand (checked above: the input's dtype) has both routes
@@ -277,21 +290,26 @@ def _check_grids(op: FusedOperand, xs: torch.Tensor,
 def _one_launch(wrapper, gop: Union[RowsOperand, StarOperand],
                 xs: torch.Tensor, halo: int,
                 plain: Callable[[list], torch.Tensor],
-                launch: Callable[[torch.Tensor, fr.Fragments, bool], None]
-                ) -> torch.Tensor:
+                launch: Callable[[torch.Tensor, fr.Fragments, bool], None],
+                out: Optional[torch.Tensor]) -> torch.Tensor:
     """The steps the one-launch 2-D wrappers share: check ``xs`` against
-    ``gop``'s tables and a ``halo``-wide halo; on the CPU ``plain`` on the
-    ops' (values, meta words, star_fast) in the wrapper's region; on the
-    card a contiguous (B, H, W) output, and ``launch(y, frags, tf32)`` with
-    the route's stacked tables in the region, counted on
-    ``wrapper.launches``."""
+    ``gop``'s tables and a ``halo``-wide halo, and ``out`` against the (B,
+    H, W) result; on the CPU ``plain`` on the ops' (values, meta words,
+    star_fast) in the wrapper's region, written into ``out`` where given;
+    on the card ``out`` or a contiguous (B, H, W) output, and ``launch(y,
+    frags, tf32)`` with the route's stacked tables in the region, counted
+    on ``wrapper.launches``."""
     b, h, w = _check_grids(gop.ops[0], xs, halo)
+    if out is not None:
+        check_out(out, (b, h, w), xs)
     name = wrapper.__name__
     if xs.device.type == "cpu":
         with region(name):
-            return plain([(o.values, o.meta_words, o.star_fast)
-                          for o in gop.ops])
-    y = torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
+            y = plain([(o.values, o.meta_words, o.star_fast)
+                       for o in gop.ops])
+            return y if out is None else out.copy_(y)
+    y = (torch.empty((b, h, w), dtype=xs.dtype, device=xs.device)
+         if out is None else out)
     if y.numel() == 0:
         return y
     tf32 = xs.dtype == torch.float32
@@ -302,7 +320,8 @@ def _one_launch(wrapper, gop: Union[RowsOperand, StarOperand],
     return y
 
 
-def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
+def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every row op at once: ``y[b, i, j] = sum_u op_u(xs[b, i + leads[u],
     :])[j]``.
 
@@ -311,6 +330,9 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
     the contiguous (B, H, W) interior in ``xs.dtype``, the R applications
     summed in float32, in order, and rounded once: in float32 the sums of
     :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
+    ``out``, where given, is written and returned instead: any (B, H, W)
+    view with a unit column stride that shares no byte with ``xs``, such
+    as the interior of the next step's haloed grid.
     """
     return _one_launch(
         sptc_spmm_rows2d, rop, xs, rop.halo,
@@ -319,7 +341,7 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor) -> torch.Tensor:
         lambda y, frags, tf32: sptc_rows2d_launch(
             xs, y, frags, halo=rop.halo, L=rop.L,
             lead_bits=sum(u << (4 * i) for i, u in enumerate(rop.leads)),
-            tf32=tf32))
+            tf32=tf32), out)
 
 
 sptc_spmm_rows2d.launches = 0    # type: ignore[attr-defined]
@@ -378,7 +400,8 @@ def star_operand(ops: Sequence[FusedOperand], radius: int) -> StarOperand:
                        tf32=tf32, bf16=bf16)
 
 
-def sptc_spmm_star2d(sop: StarOperand, xs: torch.Tensor) -> torch.Tensor:
+def sptc_spmm_star2d(sop: StarOperand, xs: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Both axis ops at once: ``y[b, i, j] = op_0(xs[b, :, j + r])[i] +
     op_1(xs[b, i + r, :])[j]``.
 
@@ -387,13 +410,16 @@ def sptc_spmm_star2d(sop: StarOperand, xs: torch.Tensor) -> torch.Tensor:
     contiguous (B, H, W) interior in ``xs.dtype``, the two applications
     summed in float32 and rounded once: in float32 the sums of
     :func:`sptc_spmm_fused` per op added as the per-RowOp loop adds them.
+    ``out``, where given, is written and returned instead: any (B, H, W)
+    view with a unit column stride that shares no byte with ``xs``; a row
+    whose address is not a multiple of 16 bytes is stored 4 bytes a lane.
     """
     r = sop.radius
     return _one_launch(
         sptc_spmm_star2d, sop, xs, 2 * r,
         lambda tables: sptc_star2d_ref(tables, xs, radius=r, L=sop.L),
         lambda y, frags, tf32: sptc_star2d_launch(
-            xs, y, frags, radius=r, L=sop.L, tf32=tf32))
+            xs, y, frags, radius=r, L=sop.L, tf32=tf32), out)
 
 
 sptc_spmm_star2d.launches = 0    # type: ignore[attr-defined]

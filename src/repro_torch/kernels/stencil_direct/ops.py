@@ -8,14 +8,14 @@ only for a tensor that lies on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.build import DTYPE_CODES
-from repro_torch.kernels.common import region
+from repro_torch.kernels.common import check_out, region
 from repro_torch.kernels.stencil_direct.kernel import stencil2d_launch
 from repro_torch.kernels.stencil_direct.ref import stencil2d_ref
 
@@ -61,10 +61,14 @@ def stencil_taps(weights: np.ndarray, device: Device = None) -> Taps:
                 rh=rh, rw=rw, device=device)
 
 
-def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
+def stencil2d(taps: Taps, x: torch.Tensor, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (H+2rh, W+2rw) or (B, H+2rh, W+2rw) -> (H, W) or (B, H, W).
 
-    Float32 accumulation, output in ``x.dtype``.
+    Float32 accumulation, output in ``x.dtype``.  ``out``, where given, is
+    written and returned instead: any view of the result's shape with a
+    unit column stride that shares no byte with ``x``, such as the
+    interior of the next step's haloed grid.
     """
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be 2-D or batched 2-D, got {tuple(x.shape)}")
@@ -78,16 +82,22 @@ def stencil2d(taps: Taps, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"input {tuple(x.shape)} smaller than the halo")
     if x.shape[-1] > 1 and x.stride(-1) != 1:
         raise ValueError("x needs a unit column stride")
+    if out is not None:
+        check_out(out, x.shape[:-2] + (h, w), x)
     if x.device.type == "cpu":
         with region("stencil2d"):
-            return stencil2d_ref(taps.host, x, taps.rh, taps.rw)
+            y = stencil2d_ref(taps.host, x, taps.rh, taps.rw)
+            return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if max(taps.rh, taps.rw) > MAX_RADIUS:
         raise ValueError(f"the direct kernel takes radii up to {MAX_RADIUS} "
                          f"per axis, got ({taps.rh}, {taps.rw})")
     xb = x if x.dim() == 3 else x[None]
-    y = torch.empty((xb.shape[0], h, w), dtype=x.dtype, device=x.device)
+    if out is None:
+        y = torch.empty((xb.shape[0], h, w), dtype=x.dtype, device=x.device)
+    else:
+        y = out if out.dim() == 3 else out[None]
     if y.numel() == 0 or not taps.host:
         y.zero_()
     else:

@@ -1044,3 +1044,131 @@ def test_cuda_sptc_star2d_planted_fault_fails(cuda_device, r):
     torch.cuda.synchronize()
     with pytest.raises(AssertionError):
         _close(got, want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel written into the interior of a haloed grid
+# ---------------------------------------------------------------------------
+
+#: (B, H, W) of the haloed outputs: ragged tiles, and rows long enough for
+#: the star kernel's full tiles (16-byte stores where a row's address is a
+#: multiple of 16 bytes, 4-byte ones elsewhere)
+INTO_SHAPES = ((1, 37, 131), (2, 130, 1000))
+
+
+def _writes_into(fn, want, full_shape, inner, offset):
+    """``fn(out)`` on the ``inner`` view of a random grid of ``full_shape``
+    that starts ``offset`` elements past its allocation writes ``want``
+    there, bit for bit, returns that view, and leaves every other element
+    of the grid as it was."""
+    n = int(np.prod(full_shape))
+    flat = torch.randn(n + offset, device=want.device).to(want.dtype)
+    grid = flat[offset:].view(full_shape)
+    expect = grid.clone()
+    expect[inner] = want
+    out = grid[inner]
+    got = fn(out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(grid, expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,r,L",
+                         [("rows2d", r, L) for r, L in ROWS2D_CASES]
+                         + [("star2d", r, L) for r, L in STAR2D_CASES])
+def test_cuda_grid_kernels_write_into_a_haloed_grid(cuda_device, kind, r, L,
+                                                    dtype, offset):
+    """The rows and the star kernel write the interior of a haloed grid at
+    every row alignment (the star kernel's scalar and 16-byte stores) bit
+    for bit as their contiguous output, the halo untouched; an ``out`` that
+    overlaps the input is refused."""
+    dt = getattr(torch, dtype)
+    spec = make_stencil("box" if kind == "rows2d" else "star", 2, r, seed=r)
+    eng = StencilEngine(spec, "cuda_sptc", L=L, device=cuda_device, dtype=dt)
+    gop = _rows_operand(eng, cuda_device, dt)
+    wrapper = getattr(sptc_ops, f"sptc_spmm_{kind}")
+    for b, h, w in INTO_SHAPES:
+        xs = _rows2d_input(r, b, h, w, "contiguous", dt, cuda_device)
+        inner = (slice(None), slice(r, r + h), slice(r, r + w))
+        want = wrapper(gop, xs)
+        _writes_into(lambda out: wrapper(gop, xs, out=out), want,
+                     (b, h + 2 * r, w + 2 * r), inner, offset)
+        with pytest.raises(ValueError, match="overlaps"):
+            wrapper(gop, xs, out=xs[inner])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,ndim,r", [("box", 1, 2), ("box", 2, 1),
+                                          ("star", 2, 3), ("box", 2, 3)])
+def test_cuda_stencil2d_writes_into_a_haloed_grid(cuda_device, shape, ndim,
+                                                  r, dtype, offset):
+    """The direct kernel writes the interior of a haloed grid (a line: the
+    one row of a rh = 0 problem) bit for bit as its contiguous output."""
+    dt = getattr(torch, dtype)
+    spec = make_stencil(shape, ndim, r, seed=r)
+    taps = direct_ops.stencil_taps(spec.weights, cuda_device)
+    if ndim == 1:
+        full, inner = (1, 4099 + 2 * r), (slice(None), slice(r, r + 4099))
+    else:
+        full = (2, 130 + 2 * r, 1000 + 2 * r)
+        inner = (slice(None), slice(r, r + 130), slice(r, r + 1000))
+    x = torch.randn(full, device=cuda_device).to(dt)
+    want = direct_ops.stencil2d(taps, x)
+    _writes_into(lambda out: direct_ops.stencil2d(taps, x, out=out), want,
+                 full, inner, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_cuda_sptc_fused_writes_into_a_haloed_line(cuda_device, r, dtype,
+                                                   offset):
+    """The fused kernel writes a line's interior, viewed as (n_out, 1), bit
+    for bit as its contiguous output."""
+    dt = getattr(torch, dtype)
+    sk = sparsify.sparsify_stencil_kernel(
+        np.random.default_rng(r).uniform(0.1, 1.0, size=2 * r + 1))
+    op = sptc_ops.fused_operand(sk.sparse, sk.perm, sk.L, dtype=dt,
+                                device=cuda_device)
+    n = 100_003
+    x = torch.randn(n + 2 * r, 1, device=cuda_device).to(dt)
+    want = sptc_ops.sptc_spmm_fused(op, x, n_out=n)[:, 0]
+    _writes_into(lambda out: sptc_ops.sptc_spmm_fused(
+        op, x, n_out=n, out=out[:, None])[:, 0], want, (n + 2 * r,),
+        (slice(r, r + n),), offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,ndim,r,backend,dims", [
+    ("box", 2, 1, "cuda_sptc", (514, 1030)),
+    ("box", 1, 2, "cuda_sptc", (1_000_003,)),
+    ("box", 2, 1, "cuda_direct", (514, 1030)),
+    ("star", 2, 3, "cuda_sptc", (514, 1030))])
+def test_cuda_iterate_in_place_equals_the_repad_loop(cuda_device, shape, ndim,
+                                                     r, backend, dims, dtype):
+    """The benchmark cells' engines: ``iterate`` writes every step in place
+    and equals the re-pad loop (``F.pad`` of each engine call) bit for bit,
+    its argument untouched."""
+    import torch.nn.functional as F
+    dt = getattr(torch, dtype)
+    eng = StencilEngine(make_stencil(shape, ndim, r, seed=r), backend,
+                        device=cuda_device, dtype=dt)
+    x = F.pad(torch.randn(dims, device=cuda_device), (r,) * (2 * ndim)
+              ).to(dt)
+    x0 = x.clone()
+    done = StencilEngine.iterate.steps_in_place
+    got = eng.iterate(x, 10)
+    assert StencilEngine.iterate.steps_in_place == done + 10
+    want = x
+    for _ in range(10):
+        want = F.pad(eng(want), (r,) * (2 * ndim))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(x, x0)

@@ -2,7 +2,9 @@
 
 Spans (``kernels/common.py::region``) are profiler ranges, on exactly while
 a ``torch.profiler`` is active: ``StencilEngine`` opens ``engine.iterate``,
-``engine.apply`` and ``engine.pad``; the kernel wrappers' regions and the
+``engine.apply`` and ``engine.pad`` (around each of ``iterate``'s halo
+fills: one a buffer where it writes in place, one a re-pad otherwise); the
+kernel wrappers' regions and the
 per-RowOp loop's ``engine.layout_copy`` and ``engine.accumulate`` nest
 inside ``engine.apply``.  The launch audit walks through the engine's
 spans, so an engine call audits as its emitted function does.  Set-up
@@ -23,6 +25,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tuner
+from repro_torch.core import engine as engine_mod
 from repro_torch.core.engine import StencilEngine
 from repro_torch.core.stencil import make_stencil
 from repro_torch.core.transform import lower_spec
@@ -57,24 +60,32 @@ def test_engine_span_names():
     assert not set(ENGINE_SPANS) & set(KERNEL_REGIONS)
 
 
-@pytest.mark.parametrize("backend", sorted(REGION))
-def test_iterate_records_its_spans_with_the_regions_inside(backend):
+@pytest.mark.parametrize("backend,k,pads", [
+    pytest.param(b, 1, 2, id=b) for b in sorted(REGION)] + [
+    pytest.param(b, 2, 3, id=f"{b}-repad") for b in sorted(REGION)])
+def test_iterate_records_its_spans_with_the_regions_inside(backend, k, pads):
+    """Three engine calls: in place (k = 1) the halos of the call's two
+    buffers are zeroed in one ``engine.pad`` each; re-padding (the
+    temporal-blocked fallback, k = 2) one ``engine.pad`` a call.  The
+    kernel regions nest under ``engine.apply`` and ``engine.iterate``."""
     spec, x = _box(CPU)
-    eng = StencilEngine(spec, backend=backend, device="cpu")
+    eng = StencilEngine(spec, backend=backend, temporal_steps=k,
+                        device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        y = eng.iterate(x, 3)
+        y = eng.iterate(x, 3 * k)
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     count = {n: sum(e.name == n for e in events) for n in ENGINE_SPANS}
-    assert count == {"engine.iterate": 1, "engine.apply": 3, "engine.pad": 3,
-                     "engine.layout_copy": 0, "engine.accumulate": 0}
+    assert count == {"engine.iterate": 1, "engine.apply": 3,
+                     "engine.pad": pads, "engine.layout_copy": 0,
+                     "engine.accumulate": 0}
     regions = [e for e in events if e.name == REGION[backend]]
-    assert regions
+    assert len(regions) == 3 * k
     for e in regions:
         assert _ancestors(e)[:2] == ["engine.apply", "engine.iterate"]
     for e in events:
         if e.name in ("engine.apply", "engine.pad"):
             assert _ancestors(e) == ["engine.iterate"]
-    torch.testing.assert_close(y, eng.iterate(x, 3), rtol=0, atol=0)
+    torch.testing.assert_close(y, eng.iterate(x, 3 * k), rtol=0, atol=0)
 
 
 def _glue(eng, x, steps):
@@ -155,21 +166,53 @@ def test_rows_kernel_copy_of_a_transposed_grid_is_a_layout_copy():
     torch.testing.assert_close(y, eng(x.t().contiguous()), rtol=0, atol=0)
 
 
-def test_iterate_frees_each_step_before_the_next():
-    """The re-pad's span holds no step alive: a step's output is freed
-    before the next step runs, so ``iterate`` keeps no extra grid."""
-    outs = []
-
-    class Watched(StencilEngine):
-        def __call__(self, x):
-            assert all(r() is None for r in outs)
-            y = super().__call__(x)
-            outs.append(weakref.ref(y))
-            return y
-
+@pytest.mark.parametrize("path", ["in_place", "repad"])
+def test_iterate_frees_each_step_before_the_next(path, monkeypatch):
+    """``iterate`` keeps no grid beyond what its steps need.  Re-padding (an
+    engine whose ``__call__`` is replaced is iterated through it): the
+    re-pad's span holds no step alive, a step's output is freed before the
+    next step runs.  In place: the call makes two haloed grids and no
+    other, each as the step that first writes it runs, the steps write into
+    them in turn, and the one not returned is freed with the call."""
     spec, x = _box(CPU)
-    Watched(spec, backend="cuda_sptc", device="cpu").iterate(x, 3)
-    assert len(outs) == 3
+    x0 = x.clone()
+    if path == "repad":
+        outs = []
+
+        class Watched(StencilEngine):
+            def __call__(self, x):
+                assert all(r() is None for r in outs)
+                y = super().__call__(x)
+                outs.append(weakref.ref(y))
+                return y
+
+        Watched(spec, backend="cuda_sptc", device="cpu").iterate(x, 3)
+        assert len(outs) == 3
+        assert torch.equal(x, x0)
+        return
+    made, wrote = [], []
+    haloed = engine_mod._haloed
+
+    def watched(like, h):
+        grid = haloed(like, h)
+        made.append(weakref.ref(grid))
+        return grid
+
+    monkeypatch.setattr(engine_mod, "_haloed", watched)
+    eng = StencilEngine(spec, backend="cuda_sptc", device="cpu")
+    fn = eng._fn
+
+    def step(xs, out=None):
+        wrote.append([g() is not None and out.untyped_storage().data_ptr()
+                      == g().untyped_storage().data_ptr() for g in made])
+        return fn(xs, out=out)
+
+    step.takes_out = True
+    eng._fn = step
+    y = eng.iterate(x, 3)
+    assert wrote == [[True], [False, True], [True, False]]
+    assert y is made[0]() and made[1]() is None
+    assert torch.equal(x, x0)
 
 
 def test_apply_batched_opens_one_apply_span():

@@ -341,7 +341,8 @@ def test_batch_runs_one_application_per_row_op(monkeypatch, backend, shape,
     rows = []
     for name, fn in engine.GRID_WRAPPERS.items():
         monkeypatch.setitem(engine.GRID_WRAPPERS, name,
-                            lambda *a, _fn=fn: rows.append(1) or _fn(*a))
+                            lambda *a, _fn=fn, **k: rows.append(1)
+                            or _fn(*a, **k))
     _, spec = _specs(shape, ndim, r, seed=3)
     eng = engine.StencilEngine(spec, backend, device=CPU)
     dims = (70,) if ndim == 1 else (17, 21)
