@@ -3185,7 +3185,8 @@ def main() -> int:
     # cells' engines against the re-pad loop (each call F.pad-ded), bit for
     # bit, every step counted in place
     for name, b in (("box-2d1r", "cuda_sptc"), ("box-1d2r", "cuda_sptc"),
-                    ("box-2d1r", "cuda_direct"), ("star-2d3r", "cuda_sptc")):
+                    ("box-2d1r", "cuda_direct"), ("star-2d3r", "cuda_sptc"),
+                    ("box-2d3r", "cuda_sptc")):
         spec = next(s for s in suite if s.name == name)
         pad = (spec.radius,) * (2 * spec.ndim)
         dims = (N_1D,) if spec.ndim == 1 else (N_2D, N_2D)

@@ -298,7 +298,8 @@ def _one_launch(wrapper, gop: Union[RowsOperand, StarOperand],
     star_fast) in the wrapper's region, written into ``out`` where given;
     on the card ``out`` or a contiguous (B, H, W) output, and ``launch(y,
     frags, tf32)`` with the route's stacked tables in the region, counted
-    on ``wrapper.launches``."""
+    on ``wrapper.launches`` and, where the wrapper keeps ``row_ops``, the
+    ops it sums on that."""
     b, h, w = _check_grids(gop.ops[0], xs, halo)
     if out is not None:
         check_out(out, (b, h, w), xs)
@@ -317,6 +318,8 @@ def _one_launch(wrapper, gop: Union[RowsOperand, StarOperand],
         launch(y, gop.tf32 if tf32 else gop.bf16,  # type: ignore[arg-type]
                tf32)
     wrapper.launches += 1
+    if hasattr(wrapper, "row_ops"):
+        wrapper.row_ops += len(gop.ops)
     return y
 
 
@@ -345,6 +348,8 @@ def sptc_spmm_rows2d(rop: RowsOperand, xs: torch.Tensor, *,
 
 
 sptc_spmm_rows2d.launches = 0    # type: ignore[attr-defined]
+#: the row ops those launches summed, R = ``len(rop.leads)`` a launch
+sptc_spmm_rows2d.row_ops = 0     # type: ignore[attr-defined]
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ def _var(spec):
 #: path -> (spec, backend, engine keywords, written in place)
 PATHS = {
     "rows2d": (("box", 2, 1), "cuda_sptc", {}, True),
+    "rows2d_r3": (("box", 2, 3), "cuda_sptc", {}, True),
     "line_sptc": (("box", 1, 2), "cuda_sptc", {}, True),
     "line_direct": (("box", 1, 2), "cuda_direct", {}, True),
     "grid_direct": (("star", 2, 3), "cuda_direct", {}, True),
@@ -82,6 +83,28 @@ def test_iterate_equals_the_repad_loop(path, steps, dtype):
     halo = got.clone()
     halo[tuple(slice(h, s - h) for s in got.shape)] = 0
     assert not halo.any()
+
+
+@pytest.mark.cuda
+def test_cuda_rows2d_r3_iterate_equals_the_repad_loop():
+    """On the card the 7 x 7 box's rows kernel (R = 7 row ops, L = 8)
+    writes each step into ``iterate``'s pitched grid: bit for bit the
+    re-pad loop, every step counted in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import dispatch
+    if torch.cuda.get_device_capability(0) < dispatch.MIN_CAPABILITY:
+        pytest.skip("needs compute capability 9.0 (kernels built for sm_90a)")
+    dev = torch.device("cuda", 0)
+    eng = StencilEngine(make_stencil("box", 2, 3, seed=5), "cuda_sptc",
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = F.pad(torch.randn(1024, 1024, generator=gen, device=dev), (3,) * 4)
+    done = StencilEngine.iterate.steps_in_place
+    got = eng.iterate(x, 10)
+    assert StencilEngine.iterate.steps_in_place - done == 10
+    torch.cuda.synchronize()
+    assert torch.equal(got, _repad_loop(eng, x, 10))
 
 
 def _line_operand():

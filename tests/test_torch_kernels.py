@@ -479,6 +479,23 @@ def test_sptc_spmm_rows2d_wrapper_checks():
         sptc_ops.sptc_spmm_rows2d(rop, x[:, :1])
 
 
+@pytest.mark.parametrize("r,row_ops", [(1, 3), (2, 5), (3, 7)])
+def test_rows2d_cpu_call_counts_nothing(r, row_ops):
+    """On the CPU a 2-D box's engine call runs the rows wrapper's plain
+    version, which launches nothing: ``sptc_spmm_rows2d.launches`` and
+    ``.row_ops`` stay as they were.  Its operand holds the R = 2r + 1 row
+    ops a card launch adds to ``.row_ops``."""
+    eng = StencilEngine(make_stencil("box", 2, r, seed=r), "cuda_sptc",
+                        device="cpu")
+    x = torch.randn(9 + 2 * r, 12 + 2 * r)
+    fn = sptc_ops.sptc_spmm_rows2d
+    before = (fn.launches, fn.row_ops)
+    eng(x)
+    assert (fn.launches, fn.row_ops) == before
+    assert len(_rows_operand(eng, torch.device("cpu"),
+                             torch.float32).leads) == row_ops
+
+
 # ---------------------------------------------------------------------------
 # a 2-D star on cuda_sptc: both axis ops in one sptc_spmm_star2d call
 # ---------------------------------------------------------------------------
@@ -990,6 +1007,22 @@ def test_cuda_sptc_rows2d_matches_plain(cuda_device, r, L, b, h, w, layout,
         loop = emit_row_ops(eng.plan_ir, cuda_device, dt)(xs)
         torch.cuda.synchronize()
         assert torch.equal(got, loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,row_ops", [(1, 3), (2, 5), (3, 7)])
+def test_cuda_rows2d_counts_its_row_ops(cuda_device, r, row_ops):
+    """On the card one engine call of a 2-D box is one rows-kernel launch,
+    which adds 1 to ``sptc_spmm_rows2d.launches`` and its R = 2r + 1 row
+    ops to ``.row_ops``; the star wrapper keeps no ``row_ops``."""
+    eng = StencilEngine(make_stencil("box", 2, r, seed=r), "cuda_sptc",
+                        device=cuda_device)
+    x = torch.randn(9 + 2 * r, 12 + 2 * r, device=cuda_device)
+    fn = sptc_ops.sptc_spmm_rows2d
+    before = (fn.launches, fn.row_ops)
+    eng(x)
+    assert (fn.launches - before[0], fn.row_ops - before[1]) == (1, row_ops)
+    assert not hasattr(sptc_ops.sptc_spmm_star2d, "row_ops")
 
 
 @pytest.mark.cuda
